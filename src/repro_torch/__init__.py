@@ -1,0 +1,30 @@
+"""PyTorch/CUDA port of the hierarchical D4M reproduction (``repro``).
+
+The package mirrors ``src/repro/`` file for file: ``core/`` (semirings,
+associative segments, the hierarchy, instance-batched streaming),
+``kernels/`` (hand-written CUDA kernels for Hopper beside their plain
+PyTorch versions), ``query/``, ``data/`` and ``launch/``.  It imports
+``torch`` only: nothing of JAX and nothing of ``repro``.
+
+Entry points (``core.hier.create``, ``core.distributed.create_instances``,
+``core.hier.state_from_numpy``, ``launch.ingest``) place state on the
+CUDA device unless the caller passes ``device="cpu"``; with no CUDA device
+they raise instead of falling back.  Every kernel wrapper runs its plain
+PyTorch version for a tensor on the CPU and launches its CUDA kernel for a
+tensor on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds its state on: ``"cuda"`` unless the
+    caller names another.  Raises when CUDA is asked for and absent — the
+    port never drops to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: no CUDA device is available; pass device='cpu' to "
+            "run on the CPU")
+    return dev

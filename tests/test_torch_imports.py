@@ -1,0 +1,93 @@
+"""Import audit of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package, and the entry points refuse
+to run on the CPU unless asked — with no CUDA device they raise."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    return env
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_file_imports_jax_or_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
+        assert not bad, (f, bad)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.core import assoc, distributed, hier
+    from repro_torch.launch import ingest
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hier.create((64, 256), 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.create_instances(2, (64, 256), 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        assoc.empty(8)
+    d = hier.state_to_numpy(hier.create((64, 256), 32, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hier.state_from_numpy(d)
+    args = ingest.parser().parse_args(["--instances", "2", "--blocks", "2",
+                                       "--rounds", "1"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest.run(args)
+    np.testing.assert_array_equal(
+        hier.state_from_numpy(d, device="cpu").spills.numpy(), d["spills"])
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", script)
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

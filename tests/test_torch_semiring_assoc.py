@@ -1,0 +1,150 @@
+"""Port parity: ``repro_torch.core.semiring`` / ``assoc`` against
+``repro.core.semiring`` / ``assoc`` on the same numpy inputs, across the
+four semirings, masked and unmasked, with negative ``lo`` keys (the packed
+sort key's lexicographic-order hazard), overflow at ``out_capacity < n``
+and empty-segment zeros.  Keys and nnz exact; values exact on integer
+inputs, within rtol 1e-4 on float ones (float sums taken in another order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import assoc as jassoc
+from repro.core import semiring as jsr
+from repro_torch.core import assoc as tassoc
+from repro_torch.core import semiring as tsr
+
+import torch_parity as tp
+
+SRS = ["plus.times", "max.plus", "min.plus", "max.min"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_shim():
+    # repro/stages.py calls jax.core.raise_to_shaped, gone from newer JAX
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.core, "raise_to_shaped",
+                   lambda a, weak_type=None: a, raising=False)
+        yield
+
+
+def _block(seed, n, nkeys, dtype, neg_lo=True):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-3, nkeys, n).astype(np.int32)
+    cols = rng.integers(-nkeys if neg_lo else 0, nkeys, n).astype(np.int32)
+    cols[::5] = rng.integers(-2**31, 2**31 - 1, len(cols[::5]))
+    vals = (rng.integers(-50, 50, n) if dtype == np.int32
+            else rng.normal(size=n)).astype(dtype)
+    mask = rng.random(n) < 0.7
+    return rows, cols, vals, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("name", SRS)
+def test_semiring_zero_and_empty_segments(name, dtype):
+    """integer_zero, reduce_kind and segment_add (empty segments hold the
+    semiring zero, as jax.ops.segment_max/min leave them)."""
+    t, j = tsr.get(name), jsr.get(name)
+    np_dtype = np.float32 if dtype == torch.float32 else np.int32
+    assert tsr.reduce_kind(t) == jsr.reduce_kind(j)
+    assert np.asarray(tsr.integer_zero(t, dtype), np_dtype) == \
+        np.asarray(jsr.integer_zero(j, np_dtype))
+    vals = np.array([3, -1, 7, 2], np_dtype)
+    ids = np.array([0, 0, 3, 3], np.int32)   # segments 1, 2 and 4 are empty
+    got = t.segment_add(torch.from_numpy(vals), torch.from_numpy(ids), 5)
+    want = j.segment_add(jnp.asarray(vals), jnp.asarray(ids), 5)
+    tp.assert_vals(got.numpy(), np.asarray(want), exact=True)
+
+
+def test_unknown_semiring_raises():
+    with pytest.raises(ValueError, match="unknown semiring"):
+        tsr.get("nope")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("name", SRS)
+def test_from_coo_matches(name, dtype, masked):
+    rows, cols, vals, mask = _block(1, 96, 12, dtype)
+    t, j = tsr.get(name), jsr.get(name)
+    m = mask if masked else None
+    (jr, jc, jv), (tr, tc, tv) = tp.both(rows, cols, vals)
+    for cap in (96, 128, 10):                     # exact, padded, overflow
+        jseg, jovf = jassoc.from_coo(jr, jc, jv, cap, j,
+                                     mask=None if m is None
+                                     else jnp.asarray(m))
+        tseg, tovf = tassoc.from_coo(tr, tc, tv, cap, t,
+                                     mask=None if m is None
+                                     else torch.from_numpy(m))
+        tp.assert_segment_equal(tseg, jseg, exact=dtype == np.int32)
+        assert int(tovf) == int(jovf)
+    assert int(jovf) > 0                          # cap 10 overflowed
+
+
+def test_negative_lo_sorts_lexicographically():
+    """(hi, lo) orders as a signed pair: a naive hi << 32 | lo pack would
+    put (0, -1) after (0, 5) and (1, 0) below (0, -1)."""
+    rows = torch.tensor([0, 0, 1, 0, -1], dtype=torch.int32)
+    cols = torch.tensor([5, -1, 0, -2**31, 7], dtype=torch.int32)
+    seg, _ = tassoc.from_coo(rows, cols, torch.ones(5), 5)
+    assert seg.hi.tolist() == [-1, 0, 0, 0, 1]
+    assert seg.lo.tolist() == [7, -2**31, -1, 5, 0]
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("name", SRS)
+def test_merge_and_merge_many_match(name, use_kernel):
+    t, j = tsr.get(name), jsr.get(name)
+    segs_t, segs_j = [], []
+    for seed, cap in ((2, 64), (3, 40)):
+        rows, cols, vals, _ = _block(seed, cap, 16, np.float32)
+        (jr, jc, jv), (tr, tc, tv) = tp.both(rows, cols, vals)
+        segs_j.append(jassoc.from_coo(jr, jc, jv, cap, j)[0])
+        segs_t.append(tassoc.from_coo(tr, tc, tv, cap, t)[0])
+    for cap in (104, 20):
+        merge_t = tassoc.merge_kernel if use_kernel else tassoc.merge
+        tseg, tovf = merge_t(segs_t[0], segs_t[1], cap, t)
+        jseg, jovf = jassoc.merge(segs_j[0], segs_j[1], cap, j)
+        tp.assert_segment_equal(tseg, jseg, exact=False)
+        assert int(tovf) == int(jovf)
+    rows, cols, vals, mask = _block(4, 24, 16, np.float32)
+    (jr, jc, jv, jm), (tr, tc, tv, tm) = tp.both(rows, cols, vals, mask)
+    jr, jc, jv = jassoc.mask_coo(jr, jc, jv, jm, j)
+    tr, tc, tv = tassoc.mask_coo(tr, tc, tv, tm, t)
+    for cap in (128, 30):
+        tseg, tovf = tassoc.merge_many(segs_t, tr, tc, tv, out_capacity=cap,
+                                       sr=t, use_kernel=use_kernel)
+        jseg, jovf = jassoc.merge_many(segs_j, jr, jc, jv, out_capacity=cap,
+                                       sr=j)
+        tp.assert_segment_equal(tseg, jseg, exact=False)
+        assert int(tovf) == int(jovf)
+
+
+@pytest.mark.parametrize("name", SRS)
+def test_gate_segment_and_lookup(name):
+    t, j = tsr.get(name), jsr.get(name)
+    rows, cols, vals, _ = _block(5, 32, 6, np.float32)
+    (jr, jc, jv), (tr, tc, tv) = tp.both(rows, cols, vals)
+    jseg = jassoc.from_coo(jr, jc, jv, 40, j)[0]
+    tseg = tassoc.from_coo(tr, tc, tv, 40, t)[0]
+    for keep in (True, False):
+        tp.assert_segment_equal(tassoc.gate_segment(tseg, keep, t),
+                                jassoc.gate_segment(jseg, keep, j))
+        tp.assert_segment_equal(
+            tassoc.gate_segment(tseg, torch.tensor(keep), t),
+            jassoc.gate_segment(jseg, jnp.asarray(keep), j))
+    for r, c in ((int(rows[0]), int(cols[0])), (999, 999)):
+        for srt in (True, False):
+            tp.assert_vals(tassoc.lookup(tseg, r, c, t, sorted=srt).numpy(),
+                           np.asarray(jassoc.lookup(jseg, r, c, j,
+                                                    sorted=srt)),
+                           exact=False)
+
+
+def test_clear_and_empty():
+    seg = tassoc.empty(8, torch.int32, tsr.MAX_PLUS, device="cpu")
+    want = jassoc.empty(8, jnp.int32, jsr.MAX_PLUS)
+    tp.assert_segment_equal(seg, want)
+    tp.assert_segment_equal(tassoc.clear(seg, tsr.MAX_PLUS), want)
