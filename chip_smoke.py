@@ -26,13 +26,36 @@ caught and passed over):
    and counter equal;
 6. the layered oracle (8 instances, 32 blocks, ``--layered --lazy-l0 off
    --use-kernel``), which launches the pairwise kernel: its ``query_all``
-   equals the fused run's on the same stream.
+   equals the fused run's on the same stream;
+7. DCN-v2 serving at full width (``dcn_v2.config()``, ``use_kernel``: 26
+   fields, a 94,306,304 x 16 f32 table, 6.04 GB on the card, drawn there
+   from a seed): ``serve_scores`` at ``serve_p99`` (batch 512, median of 20
+   calls) and ``serve_bulk`` (batch 262,144, examples/s), and
+   ``retrieval_topk`` (k = 100 of 1,000,192 candidates); the embedding
+   lookups of the kernel route bit-equal to the gather route's, scores
+   within rtol 1e-6, top-k values equal to a sort of the same scores, and
+   one ``embedding_bag`` launch per kernel-route call;
+8. GNN inference at full width: ``graphcast.config()`` (16 layers, d 512,
+   227 variables) on its processor graph, the r = 6 multimesh (40,962
+   nodes, 327,660 edges), and ``gat_cora.config()`` on the
+   ``full_graph_sm`` shape (2,708 nodes, 10,556 edges, 1,433 features):
+   exactly 16 and 2 ``segment_sum`` launches per forward, and the kernel
+   route within a max relative error of 1e-3 (GraphCast) and 1e-4 (GAT) of
+   the ``index_add_`` route, with TF32 off.
+
+Phase 3 also holds the ``embedding_bag`` and ``segment_agg`` kernels
+against their plain versions (and oracles) on their registry jobs, then
+times kernel, plain version and the PyTorch library call computing the
+same function (``F.embedding_bag``, ``index_add_``; timed only, never on
+the path) at the paths' shapes: ``serve_bulk`` on the full table, and
+GraphCast's processor graph.
 
 It prints the card line, one JSON line with every kernel's numbers, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -43,6 +66,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 OPS_PER_S = 67e12              # H100 SXM float32 rate outside the tensor cores
 TOL = 1e-4                     # registry merge rtol
+DENSE_TOL = 2e-5               # registry embedding_bag / segment_agg rtol
+SERVE_P99, SERVE_BULK = 512, 262_144          # RECSYS_SHAPES batches
+N_CANDIDATES = 1_000_192       # retrieval_cand's 1M padded to 256
+VOCAB = 40_000_000             # the largest field: every field's ids span it
 
 
 def phase(name):
@@ -91,6 +118,31 @@ def compare(got, want, exact_vals: bool, what: str) -> float:
     return err
 
 
+def dense_compare(got, want, rtol: float, what: str) -> float:
+    """Same shape and NaN pattern, values within rtol (atol = rtol);
+    returns the largest absolute difference."""
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    g, w = got.double(), want.double()
+    if not torch.equal(torch.isnan(g), torch.isnan(w)):
+        raise AssertionError(f"{what}: NaN patterns differ")
+    ok = ~torch.isnan(w)
+    err = float((g[ok] - w[ok]).abs().max()) if bool(ok.any()) else 0.0
+    if not torch.allclose(g[ok], w[ok], rtol=rtol, atol=rtol):
+        raise AssertionError(f"{what}: values differ by {err}")
+    return err
+
+
+def roofline(nbytes: float, ops: float):
+    """(ms, "bytes" | "operations"): the larger of the bytes over the
+    card's memory rate and the float32 operations over its rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def merge_bound(sizes, first_sorted: bool, val_bytes: int = 4):
     """Least time for one merge of operands ``sizes`` (entries): each input
     read once and each output written once at the card's memory rate,
@@ -124,6 +176,19 @@ def kernel_phase(torch, registry, hm, assoc, sr_mod):
     results = {"hier_merge.merge_multi": {}, "hier_merge.merge": {}}
     for job in registry.jobs():
         args = job.make_inputs(0)
+        if job.family in ("embedding_bag", "segment_agg"):
+            dev_args = tuple(cuda(x) for x in args)
+            got = job.fn(*dev_args)
+            plain = job.plain(*dev_args)
+            err = dense_compare(got, plain, job.rtol, f"{job.name} vs plain")
+            dense_compare(got, job.oracle(*dev_args), job.rtol,
+                          f"{job.name} vs oracle")
+            torch.cuda.synchronize()
+            print(f"{job.name}: kernel == plain == oracle within rtol "
+                  f"{job.rtol} (bit-equal to plain: "
+                  f"{bool(torch.equal(got, plain))}, max_abs_err {err:.3g})",
+                  flush=True)
+            continue
         if job.counter == "hier_merge.merge_multi":
             bh, bl, bv, runs = args
             dev_args = (cuda(bh), cuda(bl), cuda(bv),
@@ -219,6 +284,256 @@ def kernel_phase(torch, registry, hm, assoc, sr_mod):
     return results
 
 
+def path_kernel_phase(torch, mesh):
+    """Phase 3, second part: the embedding_bag and segment_sum kernels at
+    their paths' shapes against their plain versions and the library
+    calls; returns each kernel's numbers."""
+    import torch.nn.functional as F
+    from repro_torch.configs import dcn_v2
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.embedding_bag import embedding_bag as eb
+    from repro_torch.kernels.segment_agg import ops as sa_ops
+    from repro_torch.kernels.segment_agg import segment_agg as sa
+    from repro_torch.models import dcn
+
+    def measure(name, shape, kern, plain, library, nbytes, ops):
+        got = kern()
+        want = plain()
+        err = dense_compare(got, want, DENSE_TOL, f"{name} vs plain")
+        lib = library()
+        dense_compare(got[:lib.shape[0]], lib, DENSE_TOL,
+                      f"{name} vs library call")
+        exact = bool(torch.equal(got, want))
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain, 5, 1), \
+            time_ms(library)
+        bound_ms, bound_by = roofline(nbytes, ops)
+        print(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), bit-equal to plain: {exact}, max_abs_err "
+              f"{err:.3g}", flush=True)
+        return dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                    sort_route_ms=None)
+
+    out = {}
+    cfg = dcn_v2.config()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    table = torch.randn((cfg.padded_rows, cfg.embed_dim), generator=gen,
+                        device="cuda").mul_(0.01)
+    sparse = synthetic.recsys_batch(3, SERVE_BULK, cfg.n_dense, cfg.n_sparse,
+                                    VOCAB, cfg.multi_hot,
+                                    device="cuda")["sparse"]
+    idx = dcn.global_ids(sparse, cfg).reshape(-1, cfg.multi_hot) \
+        .contiguous()
+    w = torch.ones(idx.shape, dtype=torch.float32, device="cuda")
+    idx64 = idx.long()                  # the library call takes int64 ids
+    b, l, d = idx.shape[0], idx.shape[1], cfg.embed_dim
+    out["embedding_bag.embedding_bag"] = measure(
+        "embedding_bag.embedding_bag",
+        f"serve_bulk B={b} L={l} D={d} V={cfg.padded_rows}",
+        lambda: eb.embedding_bag_cuda(table, idx, w),
+        lambda: eb.embedding_bag_plain(table, idx, w),
+        lambda: F.embedding_bag(idx64, table, mode="sum",
+                                per_sample_weights=w),
+        b * l * (4 * d + 8) + 4 * b * d, 2 * b * l * d)
+    del table, sparse, idx, w, idx64
+    torch.cuda.empty_cache()
+
+    _, _, dst = mesh
+    n, d = len(mesh[0]), 512
+    e = len(dst)
+    msg = torch.randn((e, d), generator=gen, device="cuda")
+    seg = torch.as_tensor(dst, device="cuda")
+    m, s, starts, t = sa_ops.stage(msg, seg, num_segments=n)
+    seg_sorted, msg_sorted = s[:e].long(), m[:e]
+    out["segment_agg.segment_sum"] = measure(
+        "segment_agg.segment_sum",
+        f"graphcast r6 E={e} D={d} N={n}",
+        lambda: sa.segment_sum_cuda(m, s, starts, t),
+        lambda: sa.segment_sum_plain(m, s, starts, t),
+        lambda: torch.zeros((n, d), device="cuda").index_add_(
+            0, seg_sorted, msg_sorted),
+        m.shape[0] * (4 * d + 4) + 4 * t * sa_ops.TN * d, e * d)
+    return out
+
+
+def device_profile(torch, fn, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` after a synchronize:
+    its wall, the summed device time of its kernels, their share of the
+    wall, and the ``top`` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.device_time_total for e in events)
+    return dict(wall_ms=wall * 1e3, device_ms=device_us / 1e3,
+                device_busy_share=device_us / 1e6 / wall,
+                top=[dict(name=e.key[:60], calls=e.count,
+                          device_ms=e.device_time_total / 1e3)
+                     for e in sorted(events,
+                                     key=lambda e: -e.device_time_total)
+                     [:top]])
+
+
+def timed(torch, fn, reps: int, warm: int):
+    """(last result, median seconds) of ``reps`` calls after ``warm``, each
+    ended by a synchronize on the card."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else \
+        (lambda: None)
+    for _ in range(warm):
+        fn()
+    secs = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs.append(time.perf_counter() - t0)
+    return out, sorted(secs)[len(secs) // 2]
+
+
+def dcn_phase(torch, cfg, device, *, p99_batch=SERVE_P99,
+              bulk_batch=SERVE_BULK, n_candidates=N_CANDIDATES,
+              vocab=VOCAB, k=100):
+    """Phase 7: DCN-v2 serving through the kernel route, checked against
+    the gather route.  Returns the numbers it printed."""
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import registry
+    from repro_torch.models import dcn
+
+    ref_cfg = dataclasses.replace(cfg, use_kernel=False)
+    params = dcn.init(0, cfg, device=device)
+    p99, bulk, query = (
+        synthetic.recsys_batch(seed, b, cfg.n_dense, cfg.n_sparse, vocab,
+                               cfg.multi_hot, device=device)
+        for seed, b in ((11, p99_batch), (12, bulk_batch), (13, 1)))
+    cands = synthetic.retrieval_batch(14, 1, n_candidates, cfg.mlp[-1],
+                                      device=device)["candidates"]
+    registry.reset_launches()
+    scores_p99, p99_s = timed(torch, lambda: dcn.serve_scores(params, p99,
+                                                              cfg), 20, 3)
+    scores, bulk_s = timed(torch, lambda: dcn.serve_scores(params, bulk, cfg),
+                           5, 1)
+    emb = dcn.embed_lookup(params.table, bulk["sparse"], cfg)
+    (vals, idx), topk_s = timed(
+        torch, lambda: dcn.retrieval_topk(params, query, cands, cfg, k=k),
+        10, 2)
+    calls = 23 + 6 + 1 + 12
+    launches = registry.launches()["embedding_bag.embedding_bag"]
+    want_launches = calls if torch.device(device).type == "cuda" else 0
+    if launches != want_launches:
+        raise AssertionError(f"embedding_bag launched {launches} times for "
+                             f"{calls} kernel-route calls")
+
+    for x, b in ((scores_p99, p99_batch), (scores, bulk_batch)):
+        if x.shape != (b,) or not bool(((x > 0) & (x < 1)).all()):
+            raise AssertionError("scores are not probabilities of shape [B]")
+    if not torch.equal(emb, dcn.embed_lookup(params.table, bulk["sparse"],
+                                             ref_cfg)):
+        raise AssertionError("kernel-route embeddings != gather route's")
+    ref = dcn.serve_scores(params, bulk, ref_cfg)
+    score_err = float((scores - ref).abs().max())
+    if not torch.allclose(scores, ref, rtol=1e-6, atol=0.0):
+        raise AssertionError(f"kernel-route scores differ by {score_err}")
+    all_scores = dcn.query_embedding(params, query, ref_cfg) @ cands.T
+    want = torch.sort(all_scores, dim=-1, descending=True).values[:, :k]
+    if vals.shape != (1, k) or not torch.allclose(vals, want, rtol=1e-6,
+                                                  atol=0.0):
+        raise AssertionError("top-k values != a sort of the same scores")
+    if not torch.allclose(all_scores[0, idx[0].long()], vals[0], rtol=1e-6,
+                          atol=0.0):
+        raise AssertionError("top-k indices do not point at their values")
+    if registry.launches()["embedding_bag.embedding_bag"] != launches:
+        raise AssertionError("the gather route launched the kernel")
+    if torch.device(device).type == "cuda":
+        for name, batch in (("serve_bulk", bulk), ("serve_p99", p99)):
+            print(f"profile {name}: " + json.dumps(device_profile(
+                torch, lambda b=batch: dcn.serve_scores(params, b, cfg))),
+                flush=True)
+    res = dict(serve_p99_ms=p99_s * 1e3, serve_bulk_ms=bulk_s * 1e3,
+               serve_bulk_examples_per_s=bulk_batch / bulk_s,
+               retrieval_topk_ms=topk_s * 1e3, launches=launches,
+               kernel_route_calls=calls, max_score_diff=score_err)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def gnn_forwards(torch, cfg, graph, d_feat, n_out, reps):
+    """``reps`` timed kernel-route forwards after one warm-up; returns
+    (params, output, median ms, calls)."""
+    from repro_torch.models import gnn
+    params = gnn.init(0, cfg, d_feat, n_out, device=graph["node_feat"].device)
+    out, secs = timed(torch, lambda: gnn.forward(params, cfg, graph), reps, 1)
+    if out.shape != (graph["node_feat"].shape[0], n_out) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{cfg.name}: output not finite of shape "
+                             f"[N, {n_out}]")
+    return params, out, secs * 1e3, reps + 1
+
+
+def gnn_phase(torch, gc_cfg, gc_graph, gat_cfg, gat_graph, n_classes, *,
+              reps=2):
+    """Phase 8: GraphCast and GAT-Cora forwards through the kernel route,
+    checked against the index_add_ route.  Returns the numbers it
+    printed."""
+    from repro_torch.kernels import registry
+    from repro_torch.models import gnn
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    on_card = gc_graph["node_feat"].device.type == "cuda"
+    key = "segment_agg.segment_sum"
+    registry.reset_launches()
+    gc_params, gc_out, gc_ms, gc_calls = gnn_forwards(
+        torch, gc_cfg, gc_graph, gc_cfg.n_vars, gc_cfg.n_vars, reps)
+    gc_launches = registry.launches()[key]
+    gat_params, gat_out, gat_ms, gat_calls = gnn_forwards(
+        torch, gat_cfg, gat_graph, gat_graph["node_feat"].shape[1], n_classes,
+        reps)
+    launches = registry.launches()[key]
+    per_fwd = (gc_launches / gc_calls, (launches - gc_launches) / gat_calls)
+    if on_card and per_fwd != (gc_cfg.n_layers, gat_cfg.n_layers):
+        raise AssertionError(f"segment_sum launches per forward {per_fwd}, "
+                             f"want ({gc_cfg.n_layers}, {gat_cfg.n_layers})")
+    res = dict(launches=launches, launches_per_forward=per_fwd,
+               graphcast_ms=gc_ms, gat_ms=gat_ms)
+    for name, params, cfg, graph, out, bound in (
+            ("graphcast", gc_params, gc_cfg, gc_graph, gc_out, 1e-3),
+            ("gat", gat_params, gat_cfg, gat_graph, gat_out, 1e-4)):
+        ref = gnn.forward(params, dataclasses.replace(cfg, use_kernel=False),
+                          graph)
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        res[f"{name}_max_rel_err"] = rel
+        if not rel <= bound:
+            raise AssertionError(f"{name}: kernel route vs index_add_ route "
+                                 f"max relative error {rel} > {bound}")
+    if registry.launches()[key] != launches:
+        raise AssertionError("the index_add_ route launched the kernel")
+    for name, params, cfg, graph in (("graphcast", gc_params, gc_cfg,
+                                      gc_graph),
+                                     ("gat", gat_params, gat_cfg, gat_graph)):
+        deg = torch.bincount(graph["edge_dst"].long())
+        tiles = torch.bincount(graph["edge_dst"].long() // 128).double()
+        res[f"{name}_degree_max_mean"] = (int(deg.max()),
+                                          float(deg.double().mean()))
+        res[f"{name}_edges_per_tile_max_mean"] = (int(tiles.max()),
+                                                  float(tiles.mean()))
+        if on_card:
+            print(f"profile {name} forward: " + json.dumps(device_profile(
+                torch, lambda p=params, c=cfg, g=graph: gnn.forward(p, c, g))),
+                flush=True)
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def ingest_args(**kw):
     from repro_torch.launch import ingest
     args = ingest.parser().parse_args([])
@@ -256,8 +571,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
 
+    from repro_torch.configs import dcn_v2, gat_cora, graphcast
+    from repro_torch.configs.base import GNN_SHAPES
     from repro_torch.core import assoc, hier, stream
     from repro_torch.core import semiring as sr_mod
+    from repro_torch.data import graphs
     from repro_torch.kernels import build, registry
     from repro_torch.kernels.hier_merge import hier_merge as hm
     from repro_torch.kernels.hier_merge import ops as hm_ops
@@ -283,6 +601,11 @@ def main() -> int:
 
     phase("3 kernels vs plain on the card")
     numbers = kernel_phase(torch, registry, hm, assoc, sr_mod)
+    t0 = time.perf_counter()
+    mesh = graphs.icosahedral_multimesh(6)
+    print(f"multimesh r=6: {len(mesh[0])} nodes, {len(mesh[1])} edges in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    numbers.update(path_kernel_phase(torch, mesh))
 
     phase("4 main path: d4m_stream geometry, fused, lazy layer 0, grouped, "
           "kernel")
@@ -384,22 +707,65 @@ def main() -> int:
     if layered_launches["hier_merge.merge"] == 0:
         raise AssertionError("the layered path did not launch merge")
 
+    phase("7 DCN-v2 serving at full width: serve_p99, serve_bulk, "
+          "retrieval_cand, embedding_bag kernel")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dcn_res = dcn_phase(torch, dataclasses.replace(dcn_v2.config(),
+                                                   use_kernel=True), "cuda")
+    print(f"serve_p99 {dcn_res['serve_p99_ms']:.3f} ms (median of 20), "
+          f"serve_bulk {dcn_res['serve_bulk_examples_per_s']:.1f} "
+          f"examples/s, retrieval_topk {dcn_res['retrieval_topk_ms']:.3f} "
+          f"ms; embedding_bag launches {dcn_res['launches']}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+
+    phase("8 GNN inference at full width: GraphCast on the r=6 multimesh, "
+          "GAT-Cora, segment_sum kernel")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    gc_cfg = dataclasses.replace(graphcast.config(), use_kernel=True)
+    gc_graph = dict(
+        node_feat=torch.randn((len(mesh[0]), gc_cfg.n_vars), generator=gen,
+                              device="cuda"),
+        edge_src=torch.as_tensor(mesh[1], device="cuda"),
+        edge_dst=torch.as_tensor(mesh[2], device="cuda"))
+    cora = GNN_SHAPES["full_graph_sm"]
+    gat_graph = graphs.random_graph(6, cora["n_nodes"], cora["n_edges"],
+                                    cora["d_feat"], cora["n_classes"],
+                                    device="cuda")
+    gnn_res = gnn_phase(torch, gc_cfg, gc_graph,
+                        dataclasses.replace(gat_cora.config(),
+                                            use_kernel=True),
+                        gat_graph, cora["n_classes"])
+    print(f"graphcast {gnn_res['graphcast_ms']:.2f} ms per forward, "
+          f"gat-cora {gnn_res['gat_ms']:.3f} ms per forward; segment_sum "
+          f"launches {gnn_res['launches']}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
     kernels = []
-    for name, replaces, launches in (
-            ("hier_merge.merge_multi",
-             "src/repro/kernels/hier_merge/hier_merge.py:236",
+    for name, source, replaces, launches in (
+            ("hier_merge.merge_multi", "hier_merge/csrc/hier_merge.cu",
+             "hier_merge/hier_merge.py:236",
              main_launches["hier_merge.merge_multi"]),
-            ("hier_merge.merge",
-             "src/repro/kernels/hier_merge/hier_merge.py:212",
-             layered_launches["hier_merge.merge"])):
+            ("hier_merge.merge", "hier_merge/csrc/hier_merge.cu",
+             "hier_merge/hier_merge.py:212",
+             layered_launches["hier_merge.merge"]),
+            ("embedding_bag.embedding_bag",
+             "embedding_bag/csrc/embedding_bag.cu",
+             "embedding_bag/embedding_bag.py:45", dcn_res["launches"]),
+            ("segment_agg.segment_sum", "segment_agg/csrc/segment_agg.cu",
+             "segment_agg/segment_agg.py:90", gnn_res["launches"])):
         rec = numbers[name]
         kernels.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/kernels/hier_merge/csrc/hier_merge.cu",
-            replaces=replaces, launches=launches,
+            source=f"src/repro_torch/kernels/{source}",
+            replaces=f"src/repro/kernels/{replaces}", launches=launches,
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=None,
+            bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
             sort_route_ms=rec["sort_route_ms"], shape=rec["shape"]))
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)

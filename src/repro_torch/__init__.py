@@ -28,3 +28,11 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch: no CUDA device is available; pass device='cpu' to "
             "run on the CPU")
     return dev
+
+
+def generator(seed: int, device=None) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` (resolved as above) seeded with
+    ``seed``: the port's stand-in for a JAX PRNG key."""
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(int(seed))
+    return gen

@@ -1,1 +1,2 @@
-"""Data substrate: the R-MAT power-law update streams."""
+"""Data substrate: R-MAT power-law update streams, synthetic recsys batches
+and the GNN graph builders."""

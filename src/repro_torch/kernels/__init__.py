@@ -10,11 +10,14 @@ Each family ``<name>/`` has:
                 kernel (and bumps its counter in ``registry.LAUNCHES``);
 ``ops.py``      the public entry: padding, the kernel's size rule, output
                 slicing and overflow accounting;
-``ref.py``      the sort-based oracle.
+``ref.py``      the oracle.
 
 ``registry.py`` lists one job per kernel configuration (inputs bit for bit
 the JAX package's) and holds the launch counters.  Families:
 
-``hier_merge``  bitonic two-way / multi-way canonical-segment merge — the
-                paper's layer-merge hot path.
+``hier_merge``     bitonic two-way / multi-way canonical-segment merge —
+                   the paper's layer-merge hot path;
+``embedding_bag``  weighted gather-reduce of table rows — DCN-v2's serving
+                   lookup;
+``segment_agg``    sorted segment sum — GNN message passing.
 """

@@ -2,7 +2,7 @@
 
 Each ``KernelJob`` names a kernel wrapper with a representative shape /
 dtype configuration, a deterministic numpy input maker, the wrapper's plain
-PyTorch version and the sort-based oracle (``ref.py``).  The input makers
+PyTorch version and its oracle (``ref.py``).  The input makers
 are numpy copies of ``repro/kernels/registry.py``'s, so a job's operands
 are bit for bit the reference job's: the CPU tests hold the plain versions
 against the JAX kernels on them, and ``chip_smoke.py`` holds the CUDA
@@ -10,7 +10,9 @@ kernels against the plain versions on the card.  The ``n65536`` row, the
 kernel ceiling, runs on the card here.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched the CUDA
-kernel (never the plain version), plus ``assoc.sort_route``: every
+kernel (never the plain version): ``hier_merge.merge_multi``,
+``hier_merge.merge``, ``embedding_bag.embedding_bag`` and
+``segment_agg.segment_sum``; plus ``assoc.sort_route``: every
 canonicalization that went through ``torch.sort`` instead — above the
 kernel ceiling, or with the kernels off.  A run resets the counters, drives
 its path, and reads them to show which route each merge took.
@@ -27,12 +29,16 @@ import numpy as np
 
 AUDITED_FILES = (
     "hier_merge/csrc/hier_merge.cu",
+    "embedding_bag/csrc/embedding_bag.cu",
+    "segment_agg/csrc/segment_agg.cu",
 )
 
 LAUNCHES = {
     "hier_merge.merge_multi": 0,
     "hier_merge.merge": 0,
     "assoc.sort_route": 0,
+    "embedding_bag.embedding_bag": 0,
+    "segment_agg.segment_sum": 0,
 }
 
 
@@ -57,7 +63,7 @@ class KernelJob:
 
     ``fn`` is the wrapper (plain version on a CPU tensor, CUDA kernel on a
     card tensor); ``plain`` its plain PyTorch version; ``make_inputs`` builds
-    numpy operands for a seed; ``oracle`` the sort-based reference on the
+    numpy operands for a seed; ``oracle`` the reference (``ref.py``) on the
     same operands; ``counter`` the ``LAUNCHES`` key the wrapper bumps."""
     name: str
     family: str
@@ -146,13 +152,47 @@ def _merge_multi_inputs(block: int, run_caps: Tuple[int, ...], nkeys: int,
     return make
 
 
+def _embedding_inputs(vocab: int, d: int, bags: int, bag: int):
+    def make(seed: int) -> tuple:
+        rng = np.random.default_rng(seed)
+        table = rng.normal(size=(vocab, d)).astype(np.float32)
+        idx = rng.integers(0, vocab, (bags, bag)).astype(np.int32)
+        w = rng.normal(size=(bags, bag)).astype(np.float32)
+        return table, idx, w
+    return make
+
+
+def _segment_inputs(e: int, d: int, num_tiles: int, tn: int, kb: int):
+    """Pre-sorted, block-padded operands exactly as ops.segment_sum stages
+    them (sort by segment, pad a full spare block, searchsorted starts)."""
+    def make(seed: int) -> tuple:
+        rng = np.random.default_rng(seed)
+        num_segments = num_tiles * tn
+        seg = np.sort(rng.integers(0, num_segments, e)).astype(np.int32)
+        msg = rng.normal(size=(e, d)).astype(np.float32)
+        e_pad = (e + kb - 1) // kb * kb + kb
+        seg_pad = np.concatenate(
+            [seg, np.full((e_pad - e,), num_segments, np.int32)])
+        msg_pad = np.concatenate(
+            [msg, np.zeros((e_pad - e, d), np.float32)])
+        boundaries = np.arange(num_tiles + 1, dtype=np.int32) * tn
+        starts = np.searchsorted(seg_pad, boundaries,
+                                 side="left").astype(np.int32)
+        return msg_pad, seg_pad, starts
+    return make
+
+
 def jobs() -> Tuple[KernelJob, ...]:
-    """The registry: both hier_merge kernels at the reference's shapes.
+    """The registry: every kernel at the reference's shapes.
     Imports are local so importing this module never loads torch kernels."""
     import functools
 
+    from repro_torch.kernels.embedding_bag import embedding_bag as eb
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
     from repro_torch.kernels.hier_merge import hier_merge as hm
     from repro_torch.kernels.hier_merge import ref as hm_ref
+    from repro_torch.kernels.segment_agg import ref as sa_ref
+    from repro_torch.kernels.segment_agg import segment_agg as sa
 
     out = []
 
@@ -191,4 +231,26 @@ def jobs() -> Tuple[KernelJob, ...]:
         make_inputs=_merge_multi_inputs(192, (256, 512), 300, np.float32,
                                         "plus.times"),
         oracle=multi_oracle, counter="hier_merge.merge_multi", rtol=1e-4))
+
+    out.append(KernelJob(
+        name="embedding_bag.embedding_bag_cuda/v512.d128",
+        family="embedding_bag", fn=eb.embedding_bag_cuda,
+        plain=eb.embedding_bag_plain,
+        make_inputs=_embedding_inputs(512, 128, 16, 8),
+        oracle=eb_ref.embedding_bag_ref, counter=eb.COUNTER, rtol=2e-5))
+
+    def segment_fn(msg, seg, starts):
+        return sa.segment_sum_cuda(msg, seg, starts, 2, tn=128)
+
+    def segment_plain(msg, seg, starts):
+        return sa.segment_sum_plain(msg, seg, starts, 2, tn=128)
+
+    def segment_oracle(msg, seg, starts):
+        return sa_ref.segment_sum_ref(msg, seg, 256)
+
+    out.append(KernelJob(
+        name="segment_agg.segment_sum_cuda/t2.d128",
+        family="segment_agg", fn=segment_fn, plain=segment_plain,
+        make_inputs=_segment_inputs(384, 128, 2, 128, 128),
+        oracle=segment_oracle, counter=sa.COUNTER, rtol=2e-5))
     return tuple(out)

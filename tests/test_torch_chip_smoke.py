@@ -1,0 +1,43 @@
+"""``chip_smoke.py``'s model phases (7: DCN-v2 serving, 8: GNN inference)
+rehearsed on the CPU at small sizes: the same calls and checks as on the
+card, with the kernel wrappers running their plain versions (so no launch
+is counted, and the kernel route equals the reference route exactly)."""
+import dataclasses
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.data import graphs  # noqa: E402
+
+
+def test_dcn_phase_on_cpu():
+    cfg = dataclasses.replace(registry.get_smoke_config("dcn-v2"),
+                              use_kernel=True)
+    res = chip_smoke.dcn_phase(torch, cfg, "cpu", p99_batch=16,
+                               bulk_batch=64, n_candidates=500, vocab=5000,
+                               k=10)
+    assert res["launches"] == 0 and res["kernel_route_calls"] == 42
+    assert res["max_score_diff"] == 0.0
+    assert res["serve_bulk_examples_per_s"] > 0
+
+
+def test_gnn_phase_on_cpu():
+    _, src, dst = graphs.icosahedral_multimesh(2)
+    gc = dataclasses.replace(registry.get_smoke_config("graphcast"),
+                             use_kernel=True)
+    gen = torch.Generator().manual_seed(5)
+    gc_graph = dict(node_feat=torch.randn((162, gc.n_vars), generator=gen),
+                    edge_src=torch.as_tensor(src),
+                    edge_dst=torch.as_tensor(dst))
+    gat = dataclasses.replace(registry.get_config("gat-cora"),
+                              use_kernel=True)
+    gat_graph = graphs.random_graph(6, 300, 1200, 50, 7, device="cpu")
+    res = chip_smoke.gnn_phase(torch, gc, gc_graph, gat, gat_graph, 7)
+    assert res["launches"] == 0
+    assert res["graphcast_max_rel_err"] == 0.0 == res["gat_max_rel_err"]
+    assert res["graphcast_degree_max_mean"][0] >= 5

@@ -65,10 +65,14 @@ def _assert_out(got, want, exact, rtol):
 
 
 def test_port_registry_matches_reference_jobs():
-    """One port job per reference hier_merge job (the audit-only n65536
-    row runs on the card in the port)."""
-    assert sorted(_PORT_JOBS) == sorted(_port_name(n) for n in _JAX_JOBS)
-    assert treg.AUDITED_FILES == ("hier_merge/csrc/hier_merge.cu",)
+    """One port job per reference job, every family (the audit-only n65536
+    row runs on the card in the port), and one CUDA source per family."""
+    assert sorted(j.name for j in treg.jobs()) == \
+        sorted(_port_name(j.name) for j in jreg.jobs())
+    assert treg.AUDITED_FILES == ("hier_merge/csrc/hier_merge.cu",
+                                  "embedding_bag/csrc/embedding_bag.cu",
+                                  "segment_agg/csrc/segment_agg.cu")
+    assert {j.counter for j in treg.jobs()} <= set(treg.LAUNCHES)
 
 
 @pytest.mark.parametrize("name", sorted(_JAX_JOBS))

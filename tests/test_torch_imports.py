@@ -80,6 +80,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         hier.state_from_numpy(d, device="cpu").spills.numpy(), d["spills"])
 
 
+def test_model_and_data_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import registry
+    from repro_torch.data import graphs, synthetic
+    from repro_torch.models import dcn, gnn
+    dcn_cfg = registry.get_smoke_config("dcn-v2")
+    gnn_cfg = registry.get_smoke_config("gin-tu")
+    for call in (lambda: dcn.init(0, dcn_cfg),
+                 lambda: gnn.init(0, gnn_cfg, 4, 2),
+                 lambda: graphs.random_graph(0, 16, 32, 4),
+                 lambda: graphs.batched_molecules(0, 2, 4, 6, 3),
+                 lambda: synthetic.recsys_batch(0, 4),
+                 lambda: synthetic.retrieval_batch(0, 1, 8, 4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    tree = dcn.params_to_numpy(dcn.init(0, dcn_cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dcn.params_from_numpy(tree, dcn_cfg)
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
