@@ -12,10 +12,18 @@ caught and passed over):
    ``build/``;
 3. kernels vs plain: both hier_merge kernels against their plain PyTorch
    versions (and the sort-based oracle) on the card, at every registry job
-   and at the main path's shapes, all four semirings; keys and nnz exact,
-   values exact for integer inputs and within rtol 1e-4 for float inputs
-   (the order of float sums differs); per shape, the kernel's, the plain
-   version's and the sort route's milliseconds;
+   and at the main path's shapes, all four semirings, plus the edge cases
+   of the merge-path design (one key ~5,000 times in the block, so its run
+   crosses many tiles and the look-back carries it; an all-SENTINEL merge,
+   nnz 0; all keys distinct, nnz = N; +-inf values under max.plus /
+   min.plus; k = 2 with uneven runs; operands of any length, among them the
+   depth-2 shape 3072 + 16384 + 131072 that the route rule sends to the
+   sort route); keys and nnz exact, values exact for integer inputs and
+   within rtol 1e-4 for float inputs (the order of float sums differs); per
+   shape, the kernel's host-paced milliseconds, its device microseconds and
+   kernels per call (``torch.profiler`` over 20 calls; at most 3 for
+   ``merge_multi`` at k = 1, 2 for the pairwise merge), the plain version's
+   and the sort route's milliseconds;
 4. the main path at the full ``d4m_stream`` geometry: 32 instances, cuts
    (2048, 16384, 131072), block 1024, R-MAT scale 22, fused, lazy layer 0,
    grouped, ``--use-kernel``, 128 blocks in 16 rounds (4,194,304 updates),
@@ -50,8 +58,10 @@ same function (``F.embedding_bag``, ``index_add_``; timed only, never on
 the path) at the paths' shapes: ``serve_bulk`` on the full table, and
 GraphCast's processor graph.
 
-It prints the card line, one JSON line with every kernel's numbers, and as
-its last line ``{"ok": true, "device": {...}}``.
+It prints the card line, one JSON line with every kernel's numbers (the
+``merge_multi`` row at the main path's shape 3072 + 16384, and under
+``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
+the kernel took powers of two only), and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -146,21 +156,22 @@ def roofline(nbytes: float, ops: float):
 def merge_bound(sizes, first_sorted: bool, val_bytes: int = 4):
     """Least time for one merge of operands ``sizes`` (entries): each input
     read once and each output written once at the card's memory rate,
-    against the sorting network's compare-exchanges (about 4 integer
-    operations each) plus the scan and compaction (about 4 per entry) at
-    its operation rate.  Returns (ms, "bytes" | "operations")."""
+    against the operations at its rate: the unsorted block's sorting network
+    (about 4 integer operations per compare-exchange) and, per merge of a
+    sorted operand, about 8 per entry (compare, scan, count, compact).
+    Returns (ms, "bytes" | "operations")."""
     import math
     n = sum(sizes)
     entry = 8 + val_bytes
     nbytes = n * entry + n * entry + 4
     cx, cum = 0, sizes[0]
     if not first_sorted and cum > 1:
-        lg = int(math.log2(cum))
-        cx += cum // 2 * lg * (lg + 1) // 2
+        lg = math.ceil(math.log2(cum))
+        cx += (1 << lg) // 2 * lg * (lg + 1) // 2
+    ops = 4 * cx
     for s in sizes[1:]:
         cum += s
-        cx += cum // 2 * int(math.log2(cum))
-    ops = 4 * cx + 4 * n
+        ops += 8 * cum
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -169,6 +180,8 @@ def merge_bound(sizes, first_sorted: bool, val_bytes: int = 4):
 def kernel_phase(torch, registry, hm, assoc, sr_mod):
     """Phase 3; returns per-kernel numbers at the main path's shapes."""
     import numpy as np
+    from repro_torch.launch.profile_merge import merge_profile
+    SENT = hm.SENTINEL
 
     def cuda(x):
         return torch.as_tensor(np.ascontiguousarray(x), device="cuda")
@@ -217,6 +230,40 @@ def kernel_phase(torch, registry, hm, assoc, sr_mod):
         return tuple(cuda(x) for x in registry._canonical_segment(
             rng, cap, nkeys, dtype, maker_sr))
 
+    def distinct(n_block, n_run):
+        """A block and a full run whose n_block + n_run keys are all
+        distinct (negative hi and lo among them): nnz = N."""
+        perm = rng.permutation(n_block + n_run)
+        hi = (perm // 4096 - 4).astype(np.int32)
+        lo = (perm % 4096 - 2048).astype(np.int32)
+        val = rng.normal(size=perm.shape[0]).astype(np.float32)
+        order = np.lexsort((lo[n_block:], hi[n_block:])) + n_block
+        return [(cuda(hi[:n_block]), cuda(lo[:n_block]),
+                 cuda(val[:n_block])),
+                (cuda(hi[order]), cuda(lo[order]), cuda(val[order]))]
+
+    def with_inf(ops):
+        """Every tenth value +inf and every tenth (shifted) -inf."""
+        out = []
+        for h, lo, v in ops:
+            v = v.clone()
+            v[::10] = float("inf")
+            v[5::10] = -float("inf")
+            out.append((h, lo, v))
+        return out
+
+    hot = block(6144, 1 << 14, np.float32)
+    hot[0][:5000], hot[1][:5000] = 7, -3            # one key 5,000 times
+    hot_int = block(6144, 1 << 14, np.int32)
+    hot_int[0][:5000], hot_int[1][:5000] = 7, -3
+    def sentinels(n, val):
+        return (torch.full((n,), SENT, dtype=torch.int32, device="cuda"),
+                torch.full((n,), SENT, dtype=torch.int32, device="cuda"),
+                val)
+
+    empty = [sentinels(4096, cuda(rng.normal(size=4096).astype(np.float32))),
+             sentinels(4096, torch.zeros(4096, device="cuda"))]
+
     # (kernel, label, operands, first_sorted, semiring, dtype)
     cases = []
     for sr_name in ("plus.times", "max.plus", "min.plus", "max.min"):
@@ -238,6 +285,42 @@ def kernel_phase(torch, registry, hm, assoc, sr_mod):
     cases.append(("hier_merge.merge", "pair 19456+13312",
                   [canon(19456, 1 << 14, np.float32, "plus.times"),
                    canon(13312, 1 << 14, np.float32, "plus.times")],
+                  True, "plus.times", np.float32))
+    # the merge-path design's edge cases and operands of any length
+    cases.append(("hier_merge.merge_multi", "k1 3072+16384",
+                  [block(3072, 1 << 14, np.float32),
+                   canon(16384, 1 << 14, np.float32, "plus.times")],
+                  False, "plus.times", np.float32))
+    cases.append(("hier_merge.merge_multi", "k1 hot key 6144+16384",
+                  [hot, canon(16384, 1 << 14, np.float32, "plus.times")],
+                  False, "plus.times", np.float32))
+    cases.append(("hier_merge.merge_multi", "k1 hot key 6144+16384 int32",
+                  [hot_int, canon(16384, 1 << 14, np.int32, "plus.times")],
+                  False, "plus.times", np.int32))
+    cases.append(("hier_merge.merge_multi", "k1 all SENTINEL 4096+4096",
+                  empty, False, "plus.times", np.float32))
+    cases.append(("hier_merge.merge_multi", "k1 distinct 4096+28672",
+                  distinct(4096, 28672), False, "plus.times", np.float32))
+    for sr_name in ("max.plus", "min.plus"):
+        cases.append(("hier_merge.merge_multi", f"k1 +-inf 4096+28672 "
+                      f"{sr_name}",
+                      with_inf([block(4096, 1 << 10, np.float32),
+                                canon(28672, 1 << 10, np.float32,
+                                      sr_name)]),
+                      False, sr_name, np.float32))
+    cases.append(("hier_merge.merge_multi", "k2 1000+3000+12345",
+                  [block(1000, 1 << 10, np.float32),
+                   canon(3000, 1 << 10, np.float32, "plus.times"),
+                   canon(12345, 1 << 10, np.float32, "plus.times")],
+                  False, "plus.times", np.float32))
+    cases.append(("hier_merge.merge_multi", "k2 3072+16384+131072",
+                  [block(3072, 1 << 16, np.float32),
+                   canon(16384, 1 << 16, np.float32, "plus.times"),
+                   canon(131072, 1 << 16, np.float32, "plus.times")],
+                  False, "plus.times", np.float32))
+    cases.append(("hier_merge.merge", "pair 19000+13000",
+                  [canon(19000, 1 << 14, np.float32, "plus.times"),
+                   canon(13000, 1 << 14, np.float32, "plus.times")],
                   True, "plus.times", np.float32))
 
     for kname, label, ops, first_sorted, sr_name, dtype in cases:
@@ -266,21 +349,46 @@ def kernel_phase(torch, registry, hm, assoc, sr_mod):
         seg, _ = sort_route()
         compare(got, (seg.hi, seg.lo, seg.val, seg.nnz.reshape(1)),
                 dtype == np.int32, f"{label} vs sort route")
+        nnz = int(got[3][0])
+        if (label.startswith("k1 all SENTINEL") and nnz != 0) or \
+                (label.startswith("k1 distinct") and nnz != n):
+            raise AssertionError(f"{label}: nnz {nnz}")
+        prof = merge_profile(torch, kern)
+        names = " ".join(prof["kernels"])
+        for old in ("place_kernel", "bitonic_global", "scan_carries"):
+            if old in names:
+                raise AssertionError(f"{label}: launched {old}")
+        limit = 2 if first_sorted else 3 if label.startswith("k1") else None
+        if limit is not None and prof["kernels_per_call"] > limit:
+            raise AssertionError(f"{label}: {prof['kernels_per_call']} "
+                                 f"kernels per call > {limit}: "
+                                 f"{prof['kernels']}")
         ms, plain_ms, sort_ms = time_ms(kern), time_ms(plain, 5, 1), \
             time_ms(sort_route)
         bound_ms, bound_by = merge_bound([o[0].shape[0] for o in ops],
                                          first_sorted)
-        print(f"{kname} {label}: N={n} kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sort route {sort_ms:.4f} ms, bound "
-              f"{bound_ms:.6f} ms ({bound_by}), max_abs_err {err:.3g}",
+        print(f"{kname} {label}: N={n} nnz {nnz} kernel {ms:.4f} ms, "
+              f"device_us {prof['device_us']:.2f}, kernels_per_call "
+              f"{prof['kernels_per_call']:g}, plain {plain_ms:.4f} ms, sort "
+              f"route {sort_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}), max_abs_err {err:.3g}; {prof['kernels']}",
               flush=True)
         rec = results[kname]
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
-        # the row reported for each kernel: its main-path shape
-        if label in ("k1 4096+28672 plus.times", "pair 19456+13312"):
+        # the row reported for each kernel: its main-path shape; for
+        # merge_multi also the padded shape the main path passed when the
+        # kernel took powers of two only, so rows compare across versions
+        if label in ("k1 3072+16384", "pair 19456+13312"):
             rec.update(shape=label, N=n, ms=ms, plain_ms=plain_ms,
                        sort_route_ms=sort_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       bound_by=bound_by, device_us=prof["device_us"],
+                       kernels_per_call=prof["kernels_per_call"])
+        elif label == "k1 4096+28672 plus.times":
+            rec["prev_shape"] = dict(
+                shape=label, N=n, ms=ms, plain_ms=plain_ms,
+                sort_route_ms=sort_ms, bound_ms=bound_ms,
+                device_us=prof["device_us"],
+                kernels_per_call=prof["kernels_per_call"])
     return results
 
 
@@ -766,7 +874,11 @@ def main() -> int:
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
-            sort_route_ms=rec["sort_route_ms"], shape=rec["shape"]))
+            sort_route_ms=rec["sort_route_ms"], shape=rec["shape"],
+            device_us=rec.get("device_us"),
+            kernels_per_call=rec.get("kernels_per_call")))
+        if "prev_shape" in rec:
+            kernels[-1]["prev_shape"] = rec["prev_shape"]
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

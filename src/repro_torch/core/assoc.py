@@ -199,8 +199,8 @@ def merge(a: AssocSegment, b: AssocSegment, out_capacity: int,
 def merge_kernel(a: AssocSegment, b: AssocSegment, out_capacity: int,
                  sr: Semiring = sr_mod.PLUS_TIMES
                  ) -> Tuple[AssocSegment, Tensor]:
-    """Kernel-backed merge: the pairwise bitonic merge kernel (CUDA on the
-    card, its plain version on the CPU).  Takes the sort route above the
+    """Kernel-backed merge: the pairwise merge kernel (CUDA on the card,
+    its plain version on the CPU).  Takes the sort route above the
     kernel capacity ceiling."""
     from repro_torch.kernels.hier_merge import ops as hm_ops
 
@@ -222,8 +222,9 @@ def merge_many(segments, hi: Tensor, lo: Tensor, val: Tensor, *,
     This is the fused spill cascade's data plane: instead of one sort per
     hierarchy level, every spilling layer's buffer and the incoming block
     are combined in one pass.  With ``use_kernel`` the multi-way merge
-    kernel is used below its capacity ceiling (the sorted runs are bitonic-
-    merged, not re-sorted); otherwise one sort does everything.
+    kernel is used below its capacity ceiling (only the block is sorted;
+    the sorted runs are merged, not re-sorted); otherwise one sort does
+    everything.
     """
     return _merge_many_impl(tuple(segments), hi, lo, val,
                             out_capacity=out_capacity, sr=sr,

@@ -180,7 +180,7 @@ def _spill(src: AssocSegment, dst: AssocSegment, sr: Semiring,
         merged, ovf = _merge(dst, src, dst.capacity, sr, use_kernel)
     else:
         # src is a lazy append buffer (unsorted, duplicated): the pairwise
-        # bitonic kernel requires canonical inputs, so route through the
+        # merge kernel requires canonical inputs, so route through the
         # multi-way merge, which sorts the raw side first.
         merged, ovf = assoc.merge_many((dst,), src.hi, src.lo, src.val,
                                        out_capacity=dst.capacity, sr=sr,

@@ -15,7 +15,7 @@ Each family ``<name>/`` has:
 ``registry.py`` lists one job per kernel configuration (inputs bit for bit
 the JAX package's) and holds the launch counters.  Families:
 
-``hier_merge``     bitonic two-way / multi-way canonical-segment merge —
+``hier_merge``     merge-path two-way / multi-way canonical-segment merge —
                    the paper's layer-merge hot path;
 ``embedding_bag``  weighted gather-reduce of table rows — DCN-v2's serving
                    lookup;

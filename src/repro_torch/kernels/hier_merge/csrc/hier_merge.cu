@@ -2,57 +2,88 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/hier_merge/hier_merge.py:
 //   merge_multi_pallas (_merge_multi_kernel) -> hm_merge_multi: one unsorted
-//       power-of-two block plus k canonical runs (the fused spill cascade);
+//       block plus k canonical runs (the fused spill cascade);
 //   merge_pallas (_merge_kernel)             -> hm_merge: two canonical
 //       segments (the layered cascade).
-// Both produce what the TPU kernels produce: the canonical segment of the
-// padded size N (live prefix sorted by signed lexicographic (hi, lo),
-// duplicates combined under the semiring, a (SENTINEL, SENTINEL, zero) tail)
-// and nnz.  Keys are compared as signed int32 pairs, never packed.
+// Both produce what the TPU kernels produce, at the summed input length N
+// (any N, no power-of-two rule): the canonical segment (live prefix sorted by
+// signed lexicographic (hi, lo), duplicates combined under the semiring, a
+// (SENTINEL, SENTINEL, zero) tail) and nnz.  Keys stay signed int32 pairs
+// and are compared as pairs, never packed.
 //
-// What bounds it on the H100.  A merge of N entries must move 12 bytes per
-// entry in and out (0.8 MB at the main path's N = 32768, about 0.25 us at
-// 3.35 TB/s) and its sorting network does O(N log^2 N) compare-exchanges of a
-// few integer operations each, far below the card's rate.  Neither bound is
-// reached at these sizes: the work is a chain of dependent stages, and the
-// time goes to launches and to the stages whose partners lie across tiles.
-// 32768 entries are 384 KiB, more than one CTA's 227 KB of shared memory, so
-// there is no single-CTA form at the main-path size.
+// What bounds it on the H100.  A merge must read and write 12 bytes per entry
+// (0.47 MB at the main path's N = 19456: 0.14 us at 3.35 TB/s), and a merge
+// of sorted runs needs only a linear pass.  At these sizes neither is close:
+// what a call costs is its launches and the latency of the dependent steps
+// inside them (global loads of a search, barriers, the look-back across
+// tiles), and the sort of the unsorted block if it runs on one SM.  The TPU
+// kernels ran one VMEM-sized bitonic network over the whole padded sequence;
+// this design does the least dependent work in the fewest launches instead:
 //
-// What the design does about it (simple and correct first):
-//   phase A  bitonic network.  Strides of a tile (2048 entries, 24 KB) or
-//            more run as one global-memory stage per launch; every smaller
-//            stride of a step finishes inside shared memory in one launch.
-//            The multi-way merge sorts the block, then folds in each run by
-//            a bitonic merge of acc ++ reversed run on the cumulative size.
-//   phase B  segmented inclusive scan over head flags: per CTA in shared
-//            memory, one pass over the CTA carries, and a fix-up, so each
-//            run's last element holds the run's total.
-//   phase C  keep the run-last element of each run whose key is not
-//            SENTINEL.
-//   phase D  an exclusive prefix sum of the keep flags gives each kept
-//            entry its destination; a stable scatter writes it there and
-//            [nnz, N) is filled with SENTINEL / zero.  The input is sorted,
-//            so this equals the TPU kernel's second full bitonic sort at a
-//            fraction of the work.
-// Everything runs on the caller's stream with no host synchronisation; the
-// caller allocates outputs and scratch.  Merge-path partitioning, larger
-// tiles, CTA clusters and batching many merges into one launch are the ways
-// to make it faster.
+//   launch 1  prepare_kernel.  The unsorted block is cut into chunks of
+//             kRankCap = 4096 entries (the main path's 3072 is one) and
+//             rank-sorted: each CTA takes 32 entries of a chunk, stages the
+//             chunk's keys in shared memory as order-preserving 64-bit words,
+//             and its 32 warps each count, over one slice of the chunk, the
+//             keys before each entry in (key, index) order; the sum is the
+//             entry's stable rank, and the entry is written there.  That is
+//             n^2 compares, but spread over n / 32 CTAs (96 at 3072) with no
+//             barrier chain: a bitonic network in one CTA's shared memory,
+//             the first version of this design, was most of the call's
+//             device time (78 dependent stages on one SM).  The launch's
+//             other CTAs fill the output with the sentinel tail and zero the
+//             look-back state, so the merge never has to find where the tail
+//             starts.
+//   launch 2+ merge_kernel, merge-path partitioned.  Each CTA owns kTile =
+//             256 output positions (76 CTAs at N = 19456, 128 at 32768).  Two
+//             warps find the CTA's start and end diagonals by a 32-way search
+//             (three rounds of global loads at these sizes); the CTA loads its
+//             slices of both operands and every thread merges its own
+//             position in shared memory.  With more than two sorted operands
+//             (chunks of a large block, k > 1 runs) they are folded left
+//             through this kernel into scratch; only the last pass combines:
+//             it flags run heads (one key read before and after the tile),
+//             scans (head seen, value) and counts kept entries (run-last, not
+//             SENTINEL) per tile, and gets the carry of a run entering the
+//             tile and its output offset from a single-pass decoupled
+//             look-back over one 64-bit status word per tile (status 2 bits,
+//             head seen 1 bit, keep count 29 bits, value 32 bits), with tile
+//             ids from an atomic ticket so a tile waits only on tiles that
+//             have started.  Kept entries go straight to their compacted
+//             slots; the last tile writes nnz.
+//
+// So merge_multi at k = 1 is 2 launches and the pairwise merge 2 (launch 1
+// without rank CTAs), against 13 and 10 for the bitonic design this
+// replaces.  Everything runs on the caller's stream with no host
+// synchronisation; the caller allocates one buffer for the outputs and nnz
+// (3N + 1 words) and one for the scratch (hm_scratch_words), which it may
+// free once the call is enqueued, and makes one call.
+//
+// Limits.  N < 2^29 (keep counts fill 29 bits of a status word), and at
+// most kMaxOperands = 256 sorted operands: the block's 4,096-entry chunks
+// plus the non-empty runs.  Past that the call returns cudaErrorInvalidValue
+// (the wrapper refuses such operands first).  Each operand past the second
+// adds a merge pass over the growing prefix, so the cost of a block rises
+// with the square of its chunks: the route rule keeps the main path at one
+// chunk and one run.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
-#include <cstring>
 
 namespace {
 
-constexpr int kTile = 2048;                      // entries per CTA tile
-constexpr int kScanThreads = 256;
-constexpr int kScanItems = kTile / kScanThreads;  // consecutive entries per thread
-constexpr int kCopyThreads = 256;
+constexpr int kTile = 256;           // output positions per merge CTA
+constexpr int kPrepThreads = 1024;
+constexpr int kRankCap = 4096;       // entries of one rank-sorted chunk
+constexpr int kGroupsPerChunk = kRankCap / 32;  // rank CTAs of a full chunk
+constexpr int kInitPerCta = 8192;    // output entries one init CTA fills
 constexpr int kSentinel = INT_MAX;
+constexpr int kMaxTotal = 1 << 29;   // keep counts fit 29 bits of a status word
+constexpr int kMaxOperands = 256;    // sorted operands of one call (the wrapper's
+                                     // MAX_SORTED_OPERANDS)
+constexpr unsigned kFull = 0xffffffffu;
 
 #define HM_CHECK()                                   \
   do {                                               \
@@ -64,128 +95,81 @@ __device__ __forceinline__ bool lex_gt(int ha, int la, int hb, int lb) {
   return ha > hb || (ha == hb && la > lb);
 }
 
-// True when (a, b) must swap to be ascending (asc) or descending (!asc).
-__device__ __forceinline__ bool out_of_order(int ha, int la, int hb, int lb,
-                                             bool asc) {
-  return asc ? lex_gt(ha, la, hb, lb) : lex_gt(hb, lb, ha, la);
+// ------------------------------------------------------------ launch 1 ----
+
+// The order of signed lexicographic (hi, lo) as one unsigned 64-bit key.
+__device__ __forceinline__ unsigned long long order_key(int h, int l) {
+  return (static_cast<unsigned long long>(static_cast<uint32_t>(h) ^
+                                          0x80000000u) << 32) |
+         (static_cast<uint32_t>(l) ^ 0x80000000u);
 }
 
-// ------------------------------------------------------------ phase A ----
-
-// Copy one operand into the work buffer, reversed for a run so that
-// acc ++ run is a bitonic sequence.
-__global__ void place_kernel(int* __restrict__ dh, int* __restrict__ dl,
-                             uint32_t* __restrict__ dv,
-                             const int* __restrict__ sh,
-                             const int* __restrict__ sl,
-                             const uint32_t* __restrict__ sv, int n,
-                             int reverse) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int s = reverse ? n - 1 - i : i;
-  dh[i] = sh[s];
-  dl[i] = sl[s];
-  dv[i] = sv[s];
-}
-
-// One bitonic stage whose pairs (i, i + j) lie in different tiles (j >= tile).
-// A pair orders ascending iff bit k of i is 0.
-__global__ void bitonic_global(int* __restrict__ hi, int* __restrict__ lo,
-                               uint32_t* __restrict__ val, int pairs, int j,
-                               int k) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= pairs) return;
-  const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-  const int p = i + j;
-  const int ha = hi[i], la = lo[i], hb = hi[p], lb = lo[p];
-  if (out_of_order(ha, la, hb, lb, (i & k) == 0)) {
-    const uint32_t va = val[i], vb = val[p];
-    hi[i] = hb; lo[i] = lb; val[i] = vb;
-    hi[p] = ha; lo[p] = la; val[p] = va;
-  }
-}
-
-// Every stage of steps k_begin .. k_end whose stride is below the tile, on
-// one shared-memory tile per CTA; one thread per compare-exchange.
-__global__ void bitonic_shared(int* __restrict__ hi, int* __restrict__ lo,
-                               uint32_t* __restrict__ val, int tile,
-                               int k_begin, int k_end) {
-  __shared__ int s_hi[kTile];
-  __shared__ int s_lo[kTile];
-  __shared__ uint32_t s_val[kTile];
-  const int half = tile >> 1;
-  const int t = threadIdx.x;
-  const int base = blockIdx.x * tile;
-  s_hi[t] = hi[base + t];
-  s_lo[t] = lo[base + t];
-  s_val[t] = val[base + t];
-  s_hi[t + half] = hi[base + t + half];
-  s_lo[t + half] = lo[base + t + half];
-  s_val[t + half] = val[base + t + half];
+// One CTA of a chunk's rank sort: the rank of each of its 32 entries is the
+// count of the chunk's entries before it in (key, index) order (so the sort
+// is stable and SENTINEL keys go last); each warp counts over one slice of
+// the chunk's keys, staged in shared memory, and warp 0 sums the slices and
+// writes each entry to its rank.
+__device__ void rank_group(const int* __restrict__ bh,
+                           const int* __restrict__ bl,
+                           const uint32_t* __restrict__ bv, int len,
+                           int group, int* __restrict__ sh,
+                           int* __restrict__ sl, uint32_t* __restrict__ sv) {
+  __shared__ unsigned long long s_key[kRankCap];
+  __shared__ int s_cnt[kPrepThreads / 32][32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int j = t; j < len; j += blockDim.x) s_key[j] = order_key(bh[j], bl[j]);
   __syncthreads();
-  for (int k = k_begin; k <= k_end; k <<= 1) {
-    for (int j = min(k >> 1, half); j >= 1; j >>= 1) {
-      const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-      const int p = i + j;
-      const int ha = s_hi[i], la = s_lo[i], hb = s_hi[p], lb = s_lo[p];
-      if (out_of_order(ha, la, hb, lb, ((base + i) & k) == 0)) {
-        const uint32_t va = s_val[i], vb = s_val[p];
-        s_hi[i] = hb; s_lo[i] = lb; s_val[i] = vb;
-        s_hi[p] = ha; s_lo[p] = la; s_val[p] = va;
-      }
-      __syncthreads();
-    }
+  const int i = group * 32 + lane;
+  const unsigned long long ki = i < len ? s_key[i] : ~0ull;
+  const int per = (len + kPrepThreads / 32 - 1) / (kPrepThreads / 32);
+  const int j0 = warp * per, j1 = min(j0 + per, len);
+  int cnt = 0;
+#pragma unroll 4
+  for (int j = j0; j < j1; ++j) {
+    const unsigned long long kj = s_key[j];
+    cnt += (kj < ki) | ((kj == ki) & (j < i));
   }
-  hi[base + t] = s_hi[t];
-  lo[base + t] = s_lo[t];
-  val[base + t] = s_val[t];
-  hi[base + t + half] = s_hi[t + half];
-  lo[base + t + half] = s_lo[t + half];
-  val[base + t + half] = s_val[t + half];
-}
-
-cudaError_t launch_global(int* hi, int* lo, uint32_t* val, int n, int j, int k,
-                          cudaStream_t s) {
-  const int pairs = n >> 1;
-  bitonic_global<<<(pairs + kCopyThreads - 1) / kCopyThreads, kCopyThreads, 0,
-                   s>>>(hi, lo, val, pairs, j, k);
-  HM_CHECK();
-  return cudaSuccess;
-}
-
-// Full bitonic sort of n (a power of two) entries.
-cudaError_t bitonic_sort(int* hi, int* lo, uint32_t* val, int n,
-                         cudaStream_t s) {
-  if (n < 2) return cudaSuccess;
-  const int tile = n < kTile ? n : kTile;
-  bitonic_shared<<<n / tile, tile / 2, 0, s>>>(hi, lo, val, tile, 2, tile);
-  HM_CHECK();
-  for (int k = tile << 1; k <= n; k <<= 1) {
-    for (int j = k >> 1; j >= tile; j >>= 1) {
-      cudaError_t e = launch_global(hi, lo, val, n, j, k, s);
-      if (e != cudaSuccess) return e;
-    }
-    bitonic_shared<<<n / tile, tile / 2, 0, s>>>(hi, lo, val, tile, k, k);
-    HM_CHECK();
+  s_cnt[warp][lane] = cnt;
+  __syncthreads();
+  if (warp == 0 && i < len) {
+    int rank = 0;
+#pragma unroll
+    for (int w = 0; w < kPrepThreads / 32; ++w) rank += s_cnt[w][lane];
+    sh[rank] = bh[i];
+    sl[rank] = bl[i];
+    sv[rank] = bv[i];
   }
-  return cudaSuccess;
 }
 
-// Sort a bitonic sequence of n (a power of two) entries ascending.
-cudaError_t bitonic_merge(int* hi, int* lo, uint32_t* val, int n,
-                          cudaStream_t s) {
-  if (n < 2) return cudaSuccess;
-  const int tile = n < kTile ? n : kTile;
-  for (int j = n >> 1; j >= tile; j >>= 1) {
-    cudaError_t e = launch_global(hi, lo, val, n, j, n, s);
-    if (e != cudaSuccess) return e;
+// CTAs [0, n_rank) rank-sort the block's chunks into (sh, sl, sv), 32
+// entries each; the others fill out[0, n_out) with SENTINEL / zero and zero
+// the look-back state.
+__global__ void __launch_bounds__(kPrepThreads)
+prepare_kernel(const int* __restrict__ bh, const int* __restrict__ bl,
+               const uint32_t* __restrict__ bv, int n_block, int n_rank,
+               int* __restrict__ sh, int* __restrict__ sl,
+               uint32_t* __restrict__ sv, int* __restrict__ oh,
+               int* __restrict__ ol, uint32_t* __restrict__ ov, int n_out,
+               uint32_t zero_bits, unsigned long long* __restrict__ state,
+               int n_state) {
+  const int b = blockIdx.x;
+  if (b < n_rank) {
+    const int off = b / kGroupsPerChunk * kRankCap;
+    rank_group(bh + off, bl + off, bv + off, min(kRankCap, n_block - off),
+               b % kGroupsPerChunk, sh + off, sl + off, sv + off);
+    return;
   }
-  bitonic_shared<<<n / tile, tile / 2, 0, s>>>(hi, lo, val, tile, n, n);
-  HM_CHECK();
-  return cudaSuccess;
+  const int stride = (gridDim.x - n_rank) * blockDim.x;
+  const int first = (b - n_rank) * blockDim.x + threadIdx.x;
+  for (int i = first; i < n_out; i += stride) {
+    oh[i] = kSentinel;
+    ol[i] = kSentinel;
+    ov[i] = zero_bits;
+  }
+  for (int i = first; i < n_state; i += stride) state[i] = 0ull;
 }
 
-// --------------------------------------------------------- phases B-D ----
+// ------------------------------------------------------------ launch 2+ ---
 
 // The semiring's add; its zero is the identity, which the scans rely on.
 template <typename V, int Kind> struct Combine;
@@ -205,322 +189,433 @@ template <typename V> struct Combine<V, 2> {
   __device__ static V f(V a, V b) { return a < b ? a : b; }
 };
 
-// Scratch words per merge: six int32 (or V) slots per CTA tile.
-//   [0, nb) head seen   [nb, 2nb) tile total   [2nb, 3nb) first head index
-//   [3nb, 4nb) keeps    [4nb, 5nb) carry in    [5nb, 6nb) output offset
-int num_tiles(int n) { return (n + kTile - 1) / kTile; }
-
-__device__ __forceinline__ bool run_head(const int* hi, const int* lo, int i,
-                                         int h, int l) {
-  return i == 0 || hi[i - 1] != h || lo[i - 1] != l;
+template <typename V> __device__ V from_bits(uint32_t b);
+template <> __device__ float from_bits<float>(uint32_t b) {
+  return __uint_as_float(b);
+}
+template <> __device__ int from_bits<int>(uint32_t b) {
+  return static_cast<int>(b);
+}
+__device__ __forceinline__ uint32_t to_bits(float v) {
+  return __float_as_uint(v);
+}
+__device__ __forceinline__ uint32_t to_bits(int v) {
+  return static_cast<uint32_t>(v);
 }
 
-__device__ __forceinline__ bool kept(const int* hi, const int* lo, int i,
-                                     int n, int h, int l) {
-  const bool last = i == n - 1 || hi[i + 1] != h || lo[i + 1] != l;
-  return last && h != kSentinel;
+// A tile's status word: [63:62] status (0 none, 1 aggregate, 2 inclusive
+// prefix), [61] head seen, [60:32] keep count, [31:0] value bits.
+__device__ __forceinline__ unsigned long long pack(unsigned status, int f,
+                                                   int c, uint32_t v) {
+  const unsigned long long top = (static_cast<unsigned long long>(status)
+                                  << 30) |
+                                 (static_cast<unsigned long long>(f) << 29) |
+                                 static_cast<unsigned>(c);
+  return (top << 32) | v;
 }
 
-// Block-wide inclusive scan of (head seen, value) pairs under the segmented
-// operator (a, b) -> (fa | fb, fb ? vb : a + b), one pair per thread.
-template <typename V, int Kind>
-__device__ void block_segmented_scan(int& f, V& v, int* s_f, V* s_v) {
-  const int t = threadIdx.x;
-  s_f[t] = f;
-  s_v[t] = v;
-  __syncthreads();
-  for (int d = 1; d < kScanThreads; d <<= 1) {
-    int pf = 0;
-    V pv = v;
-    if (t >= d) {
-      pf = s_f[t - d];
-      pv = s_v[t - d];
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long w) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = w;
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// Merge-path diagonal d of A ++ B (A first on equal keys), by one warp: the
+// count of A's entries among the first d outputs.  A 32-way search: each
+// round every lane tests one candidate, so ~log32 of the range in rounds.
+__device__ int diagonal(const int* __restrict__ ah, const int* __restrict__ al,
+                        int na, const int* __restrict__ bh,
+                        const int* __restrict__ bl, int nb, int d, int lane) {
+  int lo = max(0, d - nb), hi = min(d, na);
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int x = lo + lane * step;
+    bool after = false;  // A[x] comes after B[d - 1 - x]
+    if (x < hi) {
+      const int y = d - 1 - x;
+      after = lex_gt(ah[x], al[x], bh[y], bl[y]);
     }
+    const unsigned ball = __ballot_sync(kFull, after);
+    if (ball == 0) {
+      lo += step * ((hi - 1 - lo) / step) + 1;
+    } else {
+      const int f = __ffs(ball) - 1;
+      if (f == 0) {
+        hi = lo;
+      } else {
+        hi = lo + f * step;
+        lo += (f - 1) * step + 1;
+      }
+    }
+  }
+  return lo;
+}
+
+// One merge pass of sorted A and B into positions [0, na + nb).  Without
+// kCombine it writes the merged sequence; with it, the canonical segment.
+template <bool kCombine, typename V, int Kind>
+__global__ void __launch_bounds__(kTile)
+merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
+             const uint32_t* __restrict__ av, int na,
+             const int* __restrict__ bh, const int* __restrict__ bl,
+             const uint32_t* __restrict__ bv, int nb, int* __restrict__ oh,
+             int* __restrict__ ol, uint32_t* __restrict__ ov,
+             unsigned long long* __restrict__ state, int* __restrict__ nnz,
+             uint32_t zero_bits) {
+  __shared__ int s_h[kTile], s_l[kTile];
+  __shared__ uint32_t s_v[kTile];
+  __shared__ int m_h[kTile + 2], m_l[kTile + 2];
+  __shared__ int s_diag[2], s_tile, s_keep[kTile / 32], s_wf[kTile / 32];
+  __shared__ V s_wv[kTile / 32];
+  __shared__ int s_pc, s_agg_f;
+  __shared__ V s_pv, s_agg_v;
+
+  const int n = na + nb;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (kCombine) {
+    if (t == 0) s_tile = static_cast<int>(
+        atomicAdd(reinterpret_cast<unsigned*>(state), 1u));
     __syncthreads();
-    if (t >= d) {
+  }
+  const int tile = kCombine ? s_tile : blockIdx.x;
+  const int s = tile * kTile;
+  const int e = min(s + kTile, n);
+  if (warp < 2) {
+    const int x = diagonal(ah, al, na, bh, bl, nb, warp ? e : s, lane);
+    if (lane == 0) s_diag[warp] = x;
+  }
+  __syncthreads();
+  const int a0 = s_diag[0], a1 = s_diag[1];
+  const int b0 = s - a0, b1 = e - a1;
+  const int ca = a1 - a0, cnt = e - s, cb = cnt - ca;
+  if (t < ca) {
+    s_h[t] = ah[a0 + t]; s_l[t] = al[a0 + t]; s_v[t] = av[a0 + t];
+  } else if (t < cnt) {
+    const int y = b0 + t - ca;
+    s_h[t] = bh[y]; s_l[t] = bl[y]; s_v[t] = bv[y];
+  }
+  if (kCombine && t == 0 && s > 0) {  // the key at position s - 1
+    int h = INT_MIN, l = INT_MIN;
+    if (a0 > 0) { h = ah[a0 - 1]; l = al[a0 - 1]; }
+    if (b0 > 0 && lex_gt(bh[b0 - 1], bl[b0 - 1], h, l)) {
+      h = bh[b0 - 1]; l = bl[b0 - 1];
+    }
+    m_h[0] = h; m_l[0] = l;
+  }
+  if (kCombine && t == 1 && e < n) {  // the key at position e
+    int h = kSentinel, l = kSentinel;
+    bool any = false;
+    if (a1 < na) { h = ah[a1]; l = al[a1]; any = true; }
+    if (b1 < nb && (!any || lex_gt(h, l, bh[b1], bl[b1]))) {
+      h = bh[b1]; l = bl[b1];
+    }
+    m_h[cnt + 1] = h; m_l[cnt + 1] = l;
+  }
+  __syncthreads();
+
+  // This thread's output position s + t: diagonal t of the two slices.
+  int h = kSentinel, l = kSentinel;
+  uint32_t vb = zero_bits;
+  if (t < cnt) {
+    int lo = max(0, t - cb), hi = min(t, ca);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const int y = ca + t - 1 - mid;
+      if (lex_gt(s_h[mid], s_l[mid], s_h[y], s_l[y])) hi = mid;
+      else lo = mid + 1;
+    }
+    const int y = t - lo;
+    const bool take_a =
+        lo < ca && (y >= cb || !lex_gt(s_h[lo], s_l[lo], s_h[ca + y],
+                                       s_l[ca + y]));
+    const int src = take_a ? lo : ca + y;
+    h = s_h[src]; l = s_l[src]; vb = s_v[src];
+  }
+  if (!kCombine) {
+    if (t < cnt) { oh[s + t] = h; ol[s + t] = l; ov[s + t] = vb; }
+    return;
+  }
+
+  if (t < cnt) { m_h[t + 1] = h; m_l[t + 1] = l; }
+  __syncthreads();
+  const int pos = s + t;
+  const bool live = t < cnt;
+  const bool head = live && (pos == 0 || m_h[t] != h || m_l[t] != l);
+  const bool last = live && (pos == n - 1 || m_h[t + 2] != h ||
+                             m_l[t + 2] != l);
+  const bool keep = last && h != kSentinel;
+  const V zero = from_bits<V>(zero_bits);
+
+  // Tile-local segmented inclusive scan of (head seen, value).
+  int f = head;
+  V v = live ? from_bits<V>(vb) : zero;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int pf = __shfl_up_sync(kFull, f, d);
+    const V pv = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) {
       if (!f) v = Combine<V, Kind>::f(pv, v);
       f |= pf;
-      s_f[t] = f;
-      s_v[t] = v;
     }
-    __syncthreads();
   }
-}
-
-// Block-wide exclusive sum, one int per thread.
-__device__ int block_exclusive_sum(int x, int* s) {
-  const int t = threadIdx.x;
-  int acc = x;
-  s[t] = acc;
+  const unsigned kb = __ballot_sync(kFull, keep);
+  if (lane == 31) { s_wf[warp] = f; s_wv[warp] = v; s_keep[warp] = __popc(kb); }
   __syncthreads();
-  for (int d = 1; d < kScanThreads; d <<= 1) {
-    const int p = t >= d ? s[t - d] : 0;
-    __syncthreads();
-    if (t >= d) {
-      acc += p;
-      s[t] = acc;
+  int cf = 0, ck = 0, total_keep = 0;
+  V cv = zero;
+  for (int w = 0; w < kTile / 32; ++w) {
+    if (w < warp) {
+      cv = s_wf[w] ? s_wv[w] : Combine<V, Kind>::f(cv, s_wv[w]);
+      cf |= s_wf[w];
+      ck += s_keep[w];
     }
-    __syncthreads();
+    total_keep += s_keep[w];
   }
-  return acc - x;
-}
+  if (!f) v = Combine<V, Kind>::f(cv, v);
+  f |= cf;
+  const int dest_in_tile = ck + __popc(kb & ((1u << lane) - 1u));
 
-// Phase B, per tile: the tile-local segmented inclusive scan written in
-// place, plus the tile's carry, first head and count of kept entries.
-template <typename V, int Kind>
-__global__ void scan_tiles(const int* __restrict__ hi,
-                           const int* __restrict__ lo, V* __restrict__ val,
-                           int n, int* __restrict__ scratch, V zero) {
-  __shared__ int s_f[kScanThreads];
-  __shared__ V s_v[kScanThreads];
-  __shared__ int s_first_head;
-  __shared__ int s_keep;
-  const int nb = gridDim.x;
-  const int t = threadIdx.x;
-  const int b = blockIdx.x;
-  if (t == 0) {
-    s_first_head = INT_MAX;
-    s_keep = 0;
-  }
+  // The last warp holds the tile's aggregate; warp 0 publishes and looks back.
+  if (t == kTile - 1) { s_agg_f = f; s_agg_v = v; }
   __syncthreads();
-  const int base = b * kTile + t * kScanItems;
-  int f = 0, keep = 0, first = INT_MAX;
-  V v = zero;
-  for (int m = 0; m < kScanItems; ++m) {
-    const int i = base + m;
-    if (i >= n) break;
-    const int h = hi[i], l = lo[i];
-    const V x = val[i];
-    if (run_head(hi, lo, i, h, l)) {
-      v = x;
-      f = 1;
-      first = min(first, i);
+  if (warp == 0) {
+    const int agg_f = s_agg_f;
+    const V agg_v = s_agg_v;
+    unsigned long long* status = state + 1;
+    int pf = 0, pc = 0;
+    V pv = zero;
+    if (tile == 0) {
+      if (lane == 0) store_status(status, pack(2, agg_f, total_keep,
+                                               to_bits(agg_v)));
     } else {
-      v = Combine<V, Kind>::f(v, x);
+      if (lane == 0) store_status(status + tile, pack(1, agg_f, total_keep,
+                                                      to_bits(agg_v)));
+      // running (pf, pv, pc): tiles (base, tile) folded, earliest first
+      for (int base = tile - 1;; base -= 32) {
+        const int j = base - lane;
+        unsigned long long w = pack(2, 0, 0, to_bits(zero));  // before tile 0
+        if (j >= 0) {
+          do {
+            w = load_status(status + j);
+          } while ((w >> 62) == 0);
+        }
+        const unsigned incl = __ballot_sync(kFull, (w >> 62) == 2);
+        const int g = incl ? __ffs(incl) - 1 : 31;
+        int wf = 0, wc = 0;
+        V wv = zero;
+        for (int q = g; q >= 0; --q) {
+          const unsigned long long x = __shfl_sync(kFull, w, q);
+          const int xf = static_cast<int>((x >> 61) & 1);
+          const V xv = from_bits<V>(static_cast<uint32_t>(x));
+          wv = xf ? xv : Combine<V, Kind>::f(wv, xv);
+          wf |= xf;
+          wc += static_cast<int>((x >> 32) & (kMaxTotal - 1));
+        }
+        pv = pf ? pv : Combine<V, Kind>::f(wv, pv);
+        pf |= wf;
+        pc += wc;
+        if (incl) break;
+      }
+      if (lane == 0) {
+        const V inc_v = agg_f ? agg_v : Combine<V, Kind>::f(pv, agg_v);
+        store_status(status + tile, pack(2, pf | agg_f, pc + total_keep,
+                                         to_bits(inc_v)));
+      }
     }
-    keep += kept(hi, lo, i, n, h, l);
+    if (lane == 0) {
+      s_pc = pc;
+      s_pv = pv;
+      if (tile == (n - 1) / kTile) *nnz = pc + total_keep;
+    }
   }
-  if (first != INT_MAX) atomicMin(&s_first_head, first);
-  if (keep) atomicAdd(&s_keep, keep);
-  block_segmented_scan<V, Kind>(f, v, s_f, s_v);
-  V run = t > 0 ? s_v[t - 1] : zero;
-  for (int m = 0; m < kScanItems; ++m) {
-    const int i = base + m;
-    if (i >= n) break;
-    const int h = hi[i], l = lo[i];
-    const V x = val[i];
-    run = run_head(hi, lo, i, h, l) ? x : Combine<V, Kind>::f(run, x);
-    val[i] = run;
-  }
-  if (t == kScanThreads - 1) {
-    scratch[b] = f;
-    reinterpret_cast<V*>(scratch + nb)[b] = v;
-  }
-  if (t == 0) {
-    scratch[2 * nb + b] = s_first_head;
-    scratch[3 * nb + b] = s_keep;
+  __syncthreads();
+  if (keep) {
+    const int dest = s_pc + dest_in_tile;
+    oh[dest] = h;
+    ol[dest] = l;
+    ov[dest] = to_bits(f ? v : Combine<V, Kind>::f(s_pv, v));
   }
 }
 
-// Phase B across tiles (one thread, nb <= 32 on the kernel's sizes): each
-// tile's carry in, each tile's output offset, and nnz.
-template <typename V, int Kind>
-__global__ void scan_carries(int* __restrict__ scratch, int nb,
-                             int* __restrict__ nnz, V zero) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  const V* tile_val = reinterpret_cast<const V*>(scratch + nb);
-  V* carry_in = reinterpret_cast<V*>(scratch + 4 * nb);
-  V carry = zero;
-  int total = 0;
-  for (int b = 0; b < nb; ++b) {
-    carry_in[b] = carry;
-    scratch[5 * nb + b] = total;
-    total += scratch[3 * nb + b];
-    carry = scratch[b] ? tile_val[b] : Combine<V, Kind>::f(carry, tile_val[b]);
-  }
-  *nnz = total;
+// ---------------------------------------------------------------- host ----
+
+struct Operand {
+  const int* h;
+  const int* l;
+  const uint32_t* v;
+  int n;
+};
+
+int num_tiles(int n) { return (n + kTile - 1) / kTile; }
+int num_chunks(int n) { return (n + kRankCap - 1) / kRankCap; }
+
+// The outputs are hi, lo, val at [0, N), [N, 2N), [2N, 3N) of one buffer of
+// int32 words, nnz at 3N.  The scratch, a second buffer (8-byte aligned), is
+// [state: ticket + a status word per tile][the sorted block][two ping-pong
+// buffers of N entries when the fold has 2+ passes].
+int num_passes(int block_len, int n_sorted) {
+  const int ops = num_chunks(block_len) + n_sorted;
+  return ops > 2 ? ops - 1 : 1;
 }
 
-// Phase B fix-up and phases C-D: entries before a tile's first head continue
-// the previous tile's run and take its carry; each kept (run-last, live)
-// entry goes to its compacted slot; slots [nnz, n) get SENTINEL / zero.
-template <typename V, int Kind>
-__global__ void fixup_compact(const int* __restrict__ hi,
-                              const int* __restrict__ lo,
-                              const V* __restrict__ val, int n,
-                              const int* __restrict__ scratch,
-                              const int* __restrict__ nnz,
-                              int* __restrict__ out_hi,
-                              int* __restrict__ out_lo,
-                              V* __restrict__ out_val, V zero) {
-  __shared__ int s_count[kScanThreads];
-  const int nb = gridDim.x;
-  const int t = threadIdx.x;
-  const int b = blockIdx.x;
-  const int first_head = scratch[2 * nb + b];
-  const V carry_in = reinterpret_cast<const V*>(scratch + 4 * nb)[b];
-  const int total = *nnz;
-  const int base = b * kTile + t * kScanItems;
-  int keep = 0;
-  for (int m = 0; m < kScanItems; ++m) {
-    const int i = base + m;
-    if (i >= n) break;
-    keep += kept(hi, lo, i, n, hi[i], lo[i]);
-  }
-  int dest = scratch[5 * nb + b] + block_exclusive_sum(keep, s_count);
-  for (int m = 0; m < kScanItems; ++m) {
-    const int i = base + m;
-    if (i >= n) break;
-    const int h = hi[i], l = lo[i];
-    if (kept(hi, lo, i, n, h, l)) {
-      V x = val[i];
-      if (i < first_head) x = Combine<V, Kind>::f(carry_in, x);
-      out_hi[dest] = h;
-      out_lo[dest] = l;
-      out_val[dest] = x;
-      ++dest;
-    }
-    if (i >= total) {
-      out_hi[i] = kSentinel;
-      out_lo[i] = kSentinel;
-      out_val[i] = zero;
-    }
-  }
+size_t state_words(int total) {
+  return 2 * (1 + static_cast<size_t>(num_tiles(total)));
 }
 
-template <typename V, int Kind>
-cudaError_t combine_compact(int* wh, int* wl, void* wv, int n, int* oh,
-                            int* ol, void* ov, int* nnz, int* scratch,
-                            V zero, cudaStream_t s) {
-  const int nb = num_tiles(n);
-  V* wval = static_cast<V*>(wv);
-  scan_tiles<V, Kind><<<nb, kScanThreads, 0, s>>>(wh, wl, wval, n, scratch,
-                                                   zero);
-  HM_CHECK();
-  scan_carries<V, Kind><<<1, 1, 0, s>>>(scratch, nb, nnz, zero);
-  HM_CHECK();
-  fixup_compact<V, Kind><<<nb, kScanThreads, 0, s>>>(
-      wh, wl, wval, n, scratch, nnz, oh, ol, static_cast<V*>(ov), zero);
+size_t scratch_words(int block_len, int total, int n_sorted) {
+  size_t words = state_words(total) + 3 * static_cast<size_t>(block_len);
+  if (num_passes(block_len, n_sorted) > 1) {
+    words += 6 * static_cast<size_t>(total);
+  }
+  return words;
+}
+
+template <bool kCombine, typename V, int Kind>
+cudaError_t launch_merge(const Operand& a, const Operand& b, int* oh, int* ol,
+                         uint32_t* ov, unsigned long long* state, int* nnz,
+                         uint32_t zero_bits, cudaStream_t s) {
+  merge_kernel<kCombine, V, Kind><<<num_tiles(a.n + b.n), kTile, 0, s>>>(
+      a.h, a.l, a.v, a.n, b.h, b.l, b.v, b.n, oh, ol, ov, state, nnz,
+      zero_bits);
   HM_CHECK();
   return cudaSuccess;
 }
 
 template <typename V>
-cudaError_t combine_compact_kind(int kind, int* wh, int* wl, void* wv, int n,
-                                 int* oh, int* ol, void* ov, int* nnz,
-                                 int* scratch, V zero, cudaStream_t s) {
+cudaError_t launch_combine(int kind, const Operand& a, const Operand& b,
+                           int* oh, int* ol, uint32_t* ov,
+                           unsigned long long* state, int* nnz,
+                           uint32_t zero_bits, cudaStream_t s) {
   switch (kind) {
     case 0:
-      return combine_compact<V, 0>(wh, wl, wv, n, oh, ol, ov, nnz, scratch,
-                                   zero, s);
+      return launch_merge<true, V, 0>(a, b, oh, ol, ov, state, nnz, zero_bits,
+                                      s);
     case 1:
-      return combine_compact<V, 1>(wh, wl, wv, n, oh, ol, ov, nnz, scratch,
-                                   zero, s);
+      return launch_merge<true, V, 1>(a, b, oh, ol, ov, state, nnz, zero_bits,
+                                      s);
     case 2:
-      return combine_compact<V, 2>(wh, wl, wv, n, oh, ol, ov, nnz, scratch,
-                                   zero, s);
+      return launch_merge<true, V, 2>(a, b, oh, ol, ov, state, nnz, zero_bits,
+                                      s);
   }
   return cudaErrorInvalidValue;
 }
 
-bool is_pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
-
-// The shared host routine: operand 0 is the block (sorted already when
-// first_sorted), operands 1.. are canonical runs; every cumulative size from
-// operand 1 on (and operand 0's own, unless first_sorted) is a power of two.
-int run_merge(void* const* src_hi, void* const* src_lo,
-              void* const* src_val, const int* src_len, int n_src,
-              int first_sorted, void* work_hi, void* work_lo, void* work_val,
-              void* out_hi, void* out_lo, void* out_val, void* nnz,
-              void* scratch, int sr_kind, int is_int, int zero_bits,
-              void* stream) {
+// The shared host routine: src holds (hi, lo, val) pointers per source;
+// source 0 is the block (unsorted unless first_sorted), sources 1.. are
+// canonical runs.
+int run_merge(const void* const* src, const int* src_len, int n_src,
+              int first_sorted, void* out, void* scratch, int sr_kind,
+              int is_int, int zero_bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* wh = static_cast<int*>(work_hi);
-  int* wl = static_cast<int*>(work_lo);
-  uint32_t* wv = static_cast<uint32_t*>(work_val);
   if (n_src < 1 || sr_kind < 0 || sr_kind > 2) return cudaErrorInvalidValue;
-  int cum = 0;
+  long long sum = 0;
   for (int r = 0; r < n_src; ++r) {
-    const int len = src_len[r];
-    if (len < 0) return cudaErrorInvalidValue;
-    cum += len;
-    if ((r > 0 || !first_sorted) && !is_pow2(cum)) return cudaErrorInvalidValue;
+    if (src_len[r] < 0) return cudaErrorInvalidValue;
+    sum += src_len[r];
   }
-  const int n = cum;
-  int off = 0;
-  for (int r = 0; r < n_src; ++r) {
-    const int len = src_len[r];
-    if (len > 0) {
-      place_kernel<<<(len + kCopyThreads - 1) / kCopyThreads, kCopyThreads, 0,
-                     s>>>(wh + off, wl + off, wv + off,
-                          static_cast<const int*>(src_hi[r]),
-                          static_cast<const int*>(src_lo[r]),
-                          static_cast<const uint32_t*>(src_val[r]), len,
-                          r > 0);
-      HM_CHECK();
+  if (sum >= kMaxTotal) return cudaErrorInvalidValue;
+  const int total = static_cast<int>(sum);
+  int* oh = static_cast<int*>(out);
+  int* ol = oh + total;
+  uint32_t* ov = reinterpret_cast<uint32_t*>(oh + 2 * total);
+  int* cnt = oh + 3 * total;
+  if (total == 0) return cudaMemsetAsync(cnt, 0, sizeof(int), s);
+  unsigned long long* state = static_cast<unsigned long long*>(scratch);
+  const int n_state = 1 + num_tiles(total);
+  int* sorted = reinterpret_cast<int*>(state) + state_words(total);
+  auto ptr = [src](int r, int j) { return src[3 * r + j]; };
+
+  const int block_len = first_sorted ? 0 : src_len[0];
+  const int chunks = num_chunks(block_len);
+  const int n_rank = chunks ? (chunks - 1) * kGroupsPerChunk +
+                                  (block_len - (chunks - 1) * kRankCap + 31) /
+                                      32
+                            : 0;
+  const int inits = (total + kInitPerCta - 1) / kInitPerCta;
+  int* sh = sorted;
+  int* sl = sorted + block_len;
+  uint32_t* sv = reinterpret_cast<uint32_t*>(sorted + 2 * block_len);
+
+  // The sorted operands, left to right; empty ones drop out of the fold.
+  Operand ops[kMaxOperands];
+  int n_ops = 0;
+  for (int c = 0; c < chunks && n_ops < kMaxOperands; ++c) {
+    const int off = c * kRankCap;
+    ops[n_ops++] = {sh + off, sl + off, sv + off,
+                    block_len - off < kRankCap ? block_len - off : kRankCap};
+  }
+  for (int r = first_sorted ? 0 : 1; r < n_src; ++r) {
+    if (src_len[r] == 0) continue;
+    if (n_ops == kMaxOperands) return cudaErrorInvalidValue;
+    ops[n_ops++] = {static_cast<const int*>(ptr(r, 0)),
+                    static_cast<const int*>(ptr(r, 1)),
+                    static_cast<const uint32_t*>(ptr(r, 2)), src_len[r]};
+  }
+  if (chunks > kMaxOperands) return cudaErrorInvalidValue;
+  if (n_ops == 1) ops[n_ops++] = {nullptr, nullptr, nullptr, 0};
+
+  prepare_kernel<<<n_rank + inits, kPrepThreads, 0, s>>>(
+      static_cast<const int*>(ptr(0, 0)), static_cast<const int*>(ptr(0, 1)),
+      static_cast<const uint32_t*>(ptr(0, 2)), block_len, n_rank, sh, sl, sv,
+      oh, ol, ov, total, static_cast<uint32_t>(zero_bits), state, n_state);
+  HM_CHECK();
+
+  int* tmp = sorted + 3 * block_len;
+  Operand acc = ops[0];
+  for (int i = 1; i < n_ops; ++i) {
+    const Operand& b = ops[i];
+    if (i == n_ops - 1) {
+      return is_int ? launch_combine<int>(sr_kind, acc, b, oh, ol, ov, state,
+                                          cnt, zero_bits, s)
+                    : launch_combine<float>(sr_kind, acc, b, oh, ol, ov,
+                                            state, cnt, zero_bits, s);
     }
-    off += len;
+    int* th = tmp + ((i - 1) & 1) * 3 * total;
+    const int n = acc.n + b.n;
+    uint32_t* tv = reinterpret_cast<uint32_t*>(th + 2 * n);
+    cudaError_t e = launch_merge<false, int, 0>(acc, b, th, th + n, tv, state,
+                                                cnt, zero_bits, s);
+    if (e != cudaSuccess) return e;
+    acc = {th, th + n, tv, n};
   }
-  cudaError_t e = cudaSuccess;
-  cum = src_len[0];
-  if (!first_sorted) e = bitonic_sort(wh, wl, wv, cum, s);
-  for (int r = 1; r < n_src && e == cudaSuccess; ++r) {
-    cum += src_len[r];
-    e = bitonic_merge(wh, wl, wv, cum, s);
-  }
-  if (e != cudaSuccess) return e;
-  int* oh = static_cast<int*>(out_hi);
-  int* ol = static_cast<int*>(out_lo);
-  int* cnt = static_cast<int*>(nnz);
-  int* scr = static_cast<int*>(scratch);
-  if (is_int) {
-    e = combine_compact_kind<int>(sr_kind, wh, wl, wv, n, oh, ol, out_val,
-                                  cnt, scr, zero_bits, s);
-  } else {
-    float zero;
-    static_assert(sizeof(float) == sizeof(int), "32-bit values");
-    std::memcpy(&zero, &zero_bits, sizeof zero);
-    e = combine_compact_kind<float>(sr_kind, wh, wl, wv, n, oh, ol, out_val,
-                                    cnt, scr, zero, s);
-  }
-  return e;
+  return cudaErrorInvalidValue;  // unreachable: the fold ends in a combine
 }
 
 }  // namespace
 
 extern "C" {
 
-// int32 words of scratch a merge of n entries needs.
-int hm_scratch_words(int n) { return 6 * num_tiles(n); }
+// int32 words of a merge's scratch buffer: an unsorted block of block_len
+// entries (0 for the pairwise merge), n_sorted canonical operands, total
+// entries in all.  The outputs and nnz take another 3 * total + 1 words.
+long long hm_scratch_words(int block_len, int total, int n_sorted) {
+  return static_cast<long long>(scratch_words(block_len, total, n_sorted));
+}
 
 const char* hm_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// Multi-way merge: src 0 is the unsorted block, src 1..k the canonical runs.
-int hm_merge_multi(void* const* src_hi, void* const* src_lo,
-                   void* const* src_val, const int* src_len, int n_src,
-                   void* work_hi, void* work_lo, void* work_val, void* out_hi,
-                   void* out_lo, void* out_val, void* nnz, void* scratch,
-                   int sr_kind, int is_int, int zero_bits, void* stream) {
-  return run_merge(src_hi, src_lo, src_val, src_len, n_src, 0, work_hi,
-                   work_lo, work_val, out_hi, out_lo, out_val, nnz, scratch,
-                   sr_kind, is_int, zero_bits, stream);
+// Multi-way merge: src holds (hi, lo, val) per source; source 0 is the
+// unsorted block, sources 1..k the canonical runs.
+int hm_merge_multi(const void* const* src, const int* src_len, int n_src,
+                   void* out, void* scratch, int sr_kind, int is_int,
+                   int zero_bits, void* stream) {
+  return run_merge(src, src_len, n_src, 0, out, scratch, sr_kind, is_int,
+                   zero_bits, stream);
 }
 
-// Pairwise merge of two canonical segments (n_a + n_b a power of two).
+// Pairwise merge of two canonical segments of any lengths.
 int hm_merge(void* hi_a, void* lo_a, void* val_a, int n_a, void* hi_b,
-             void* lo_b, void* val_b, int n_b, void* work_hi, void* work_lo,
-             void* work_val, void* out_hi, void* out_lo, void* out_val,
-             void* nnz, void* scratch, int sr_kind, int is_int,
-             int zero_bits, void* stream) {
-  void* hs[2] = {hi_a, hi_b};
-  void* ls[2] = {lo_a, lo_b};
-  void* vs[2] = {val_a, val_b};
+             void* lo_b, void* val_b, int n_b, void* out, void* scratch,
+             int sr_kind, int is_int, int zero_bits, void* stream) {
+  const void* src[6] = {hi_a, lo_a, val_a, hi_b, lo_b, val_b};
   const int lens[2] = {n_a, n_b};
-  return run_merge(hs, ls, vs, lens, 2, 1, work_hi, work_lo, work_val,
-                   out_hi, out_lo, out_val, nnz, scratch, sr_kind, is_int,
-                   zero_bits, stream);
+  return run_merge(src, lens, 2, 1, out, scratch, sr_kind, is_int, zero_bits,
+                   stream);
 }
 
 }  // extern "C"

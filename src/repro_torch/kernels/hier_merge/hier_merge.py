@@ -4,33 +4,32 @@ Two kernels, hand-written in CUDA C++ for ``sm_90a``
 (``csrc/hier_merge.cu``), replace the Pallas kernels of
 ``repro/kernels/hier_merge/hier_merge.py``:
 
-``merge_multi_cuda``  one UNSORTED power-of-two block plus k canonical runs
+``merge_multi_cuda``  one UNSORTED block plus k canonical runs
                       (``merge_multi_pallas``): the fused spill cascade's
                       multi-way merge, the main path's kernel;
 ``merge_cuda``        two canonical segments (``merge_pallas``): the
                       layered oracle path's pairwise merge.
 
-Both compute what the TPU kernels compute — the canonical segment of the
-padded size N (live prefix sorted by signed lexicographic (hi, lo),
-duplicates combined under the semiring, a (SENTINEL, SENTINEL, zero) tail)
-plus ``nnz`` — in four phases:
-
-  A  bitonic network: sort the block, then fold each run in with a bitonic
-     merge of acc ++ reversed run (global-memory stages for strides of a
-     tile or more, shared-memory tiles below);
-  B  segmented inclusive scan over head flags: each run's last element
-     ends up holding the run's semiring total;
-  C  keep the run-last element of every run whose key is not SENTINEL;
-  D  stable compaction by an exclusive prefix sum of the keep flags, then
-     fill [nnz, N) with SENTINEL / zero.
+Both compute what the TPU kernels compute — the canonical segment (live
+prefix sorted by signed lexicographic (hi, lo), duplicates combined under
+the semiring, a (SENTINEL, SENTINEL, zero) tail) plus ``nnz`` — for
+operands of any length, at the summed input length, up to
+``MAX_SORTED_OPERANDS`` sorted operands: the block's ``RANK_CHUNK``-entry
+chunks plus the runs (a block of at most 1,048,576 entries; each chunk
+past the first adds a merge pass over the growing prefix, so a block's cost
+rises with the square of its chunks).  On the card the block is rank-sorted
+across CTAs, then merge-path CTAs merge, combine and compact in one pass
+with a decoupled look-back (two launches at k = 1; the source note in
+``csrc/hier_merge.cu`` has the design).
 
 Beside each wrapper is its plain PyTorch version (``merge_plain``,
-``merge_multi_plain``), which runs the same phases with tensor ops: the
-bitonic compare-exchange as ``reshape(rows, 2, stride)``, a segmented scan
-and a cumsum-scatter compaction.  A wrapper runs the plain version for
-tensors on the CPU and the CUDA kernel for tensors on the card; it never
-falls back from one to the other.  Each CUDA launch adds one to the
-wrapper's counter in ``kernels.registry.LAUNCHES``.
+``merge_multi_plain``), which pads to powers of two with sentinels and runs
+the TPU kernels' phases with tensor ops: the bitonic compare-exchange as
+``reshape(rows, 2, stride)``, a segmented scan and a cumsum-scatter
+compaction, then slices back.  A wrapper runs the plain version for tensors
+on the CPU and the CUDA kernel for tensors on the card; it never falls back
+from one to the other.  Each CUDA launch adds one to the wrapper's counter
+in ``kernels.registry.LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -40,7 +39,9 @@ import struct
 import torch
 
 from repro_torch.kernels import build, registry
-from repro_torch.kernels.hier_merge.ref import SENTINEL, _as_tensor, _zero_for
+from repro_torch.kernels.hier_merge.ref import (SENTINEL, _as_tensor,
+                                                _next_pow2, _pad_canonical,
+                                                _zero_for)
 
 SOURCE = "hier_merge/csrc/hier_merge.cu"
 
@@ -150,56 +151,70 @@ def _combine_dedup_compact(hi, lo, val, sr_name: str):
 
 def merge_plain(hi_a, lo_a, val_a, hi_b, lo_b, val_b, *,
                 sr_name: str = "plus.times"):
-    """Plain version of ``merge_cuda``: bitonic merge of A ++ reverse(B),
-    then combine/dedup/compact.  Returns (hi, lo, val, nnz[1])."""
+    """Plain version of ``merge_cuda``: B padded so the total is a power of
+    two, bitonic merge of A ++ reverse(B), combine/dedup/compact, sliced
+    back to the summed length.  Returns (hi, lo, val, nnz[1])."""
     a = [_as_tensor(x) for x in (hi_a, lo_a, val_a)]
     b = [_as_tensor(x) for x in (hi_b, lo_b, val_b)]
     n = a[0].shape[0] + b[0].shape[0]
-    assert n & (n - 1) == 0, f"total capacity must be a power of 2, got {n}"
+    b = _pad_canonical(*b, _next_pow2(n) - a[0].shape[0],
+                       _zero_for(sr_name, b[2].dtype))
     hi, lo, val = (torch.cat([x, torch.flip(y, (0,))]) for x, y in zip(a, b))
     hi, lo, val = _bitonic_merge(hi, lo, val)
-    return _combine_dedup_compact(hi, lo, val, sr_name)
+    out = _combine_dedup_compact(hi, lo, val, sr_name)
+    return out[0][:n], out[1][:n], out[2][:n], out[3]
 
 
 def merge_multi_plain(block, runs, *, sr_name: str = "plus.times"):
-    """Plain version of ``merge_multi_cuda``: bitonic-sort the block, fold
-    each run in by a bitonic merge of acc ++ reversed run, then
-    combine/dedup/compact.  Returns (hi, lo, val, nnz[1])."""
+    """Plain version of ``merge_multi_cuda``: the block padded to a power of
+    two and bitonic-sorted, each run padded so every cumulative size is a
+    power of two and folded in by a bitonic merge of acc ++ reversed run,
+    then combine/dedup/compact, sliced back to the summed length.  Returns
+    (hi, lo, val, nnz[1])."""
     hi, lo, val = (_as_tensor(x) for x in block)
-    size = hi.shape[0]
-    assert size & (size - 1) == 0, f"block size must be a power of 2: {size}"
-    hi, lo, val = _bitonic_sort(hi, lo, val)
+    zero = _zero_for(sr_name, val.dtype)
+    n = hi.shape[0]
+    hi, lo, val = _bitonic_sort(*_pad_canonical(hi, lo, val, _next_pow2(n),
+                                                zero))
     for run in runs:
         rhi, rlo, rval = (_as_tensor(x) for x in run)
+        n += rhi.shape[0]
+        rhi, rlo, rval = _pad_canonical(
+            rhi, rlo, rval, _next_pow2(hi.shape[0] + rhi.shape[0])
+            - hi.shape[0], zero)
         hi = torch.cat([hi, torch.flip(rhi, (0,))])
         lo = torch.cat([lo, torch.flip(rlo, (0,))])
         val = torch.cat([val, torch.flip(rval, (0,))])
-        assert hi.shape[0] & (hi.shape[0] - 1) == 0, \
-            f"cumulative size must stay a power of 2, got {hi.shape[0]}"
         hi, lo, val = _bitonic_merge(hi, lo, val)
-    return _combine_dedup_compact(hi, lo, val, sr_name)
+    out = _combine_dedup_compact(hi, lo, val, sr_name)
+    return out[0][:n], out[1][:n], out[2][:n], out[3]
 
 
 # -------------------------------------------------------------- CUDA path ---
 
+# the C side's limits (csrc/hier_merge.cu: kMaxTotal, kRankCap, kMaxOperands)
+MAX_ENTRIES = (1 << 29) - 1   # keep counts fill 29 bits of a tile's status
+RANK_CHUNK = 4096             # entries of one rank-sorted chunk of the block
+MAX_SORTED_OPERANDS = 256     # the block's chunks plus the non-empty runs
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_PP = ctypes.POINTER(ctypes.c_void_p)
-_PI = ctypes.POINTER(ctypes.c_int)
 _BOUND = {}
+_SCRATCH_WORDS = {}   # (block length, total, sorted operands) -> int32 words
+_ZERO_BITS = {}       # (semiring, value dtype) -> the zero's 32 bits
 
 
 def _lib():
     """The built kernel library with its C signatures declared."""
     if "lib" not in _BOUND:
         lib = build.load(SOURCE)
-        lib.hm_scratch_words.argtypes = [_I]
-        lib.hm_scratch_words.restype = _I
-        lib.hm_merge_multi.argtypes = (
-            [_PP, _PP, _PP, _PI, _I] + [_P] * 8 + [_I, _I, _I, _P])
+        lib.hm_scratch_words.argtypes = [_I, _I, _I]
+        lib.hm_scratch_words.restype = ctypes.c_longlong
+        lib.hm_merge_multi.argtypes = [ctypes.POINTER(_P),
+                                       ctypes.POINTER(_I), _I, _P, _P, _I,
+                                       _I, _I, _P]
         lib.hm_merge_multi.restype = _I
-        lib.hm_merge.argtypes = (
-            [_P, _P, _P, _I, _P, _P, _P, _I] + [_P] * 8 + [_I, _I, _I, _P])
+        lib.hm_merge.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I,
+                                 _I, _I, _P]
         lib.hm_merge.restype = _I
         lib.hm_error_string.argtypes = [_I]
         lib.hm_error_string.restype = ctypes.c_char_p
@@ -207,14 +222,18 @@ def _lib():
     return _BOUND["lib"]
 
 
-def _check_operands(srcs, what: str):
-    hi0 = srcs[0][0]
-    dev, vdtype = hi0.device, srcs[0][2].dtype
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: operands must be CUDA tensors, got {dev}")
+def _check_operands(srcs, what: str, block_unsorted: bool) -> int:
+    """The checks a launch needs, before anything is built or launched:
+    every operand a contiguous 1-D tensor on the first one's device, keys
+    int32, values float32 or int32 and one type, hi/lo/val of a run of one
+    length, the total at most ``MAX_ENTRIES``, at most
+    ``MAX_SORTED_OPERANDS`` sorted operands (the unsorted block's chunks
+    of ``RANK_CHUNK`` plus the non-empty runs).  Returns the total."""
+    dev, vdtype = srcs[0][0].device, srcs[0][2].dtype
     if vdtype not in (torch.float32, torch.int32):
         raise TypeError(f"{what}: values must be float32 or int32, "
                         f"got {vdtype}")
+    total = 0
     for hi, lo, val in srcs:
         for x, dt in ((hi, torch.int32), (lo, torch.int32), (val, vdtype)):
             if x.device != dev or x.dtype != dt or x.dim() != 1 \
@@ -222,49 +241,75 @@ def _check_operands(srcs, what: str):
                 raise ValueError(
                     f"{what}: every operand must be a contiguous 1-D {dt} "
                     f"tensor on {dev} matching its run's length")
+        total += hi.shape[0]
+    if total > MAX_ENTRIES:
+        raise ValueError(f"{what}: {total} entries, at most {MAX_ENTRIES}")
+    runs = srcs[1:] if block_unsorted else srcs
+    chunks = -(-srcs[0][0].shape[0] // RANK_CHUNK) if block_unsorted else 0
+    n_sorted = chunks + sum(1 for r in runs if r[0].shape[0])
+    if n_sorted > MAX_SORTED_OPERANDS:
+        raise ValueError(
+            f"{what}: {chunks} block chunks of {RANK_CHUNK} and "
+            f"{n_sorted - chunks} non-empty runs make {n_sorted} sorted "
+            f"operands, at most {MAX_SORTED_OPERANDS}")
+    return total
 
 
-def _launch(what: str, counter: str, srcs, first_sorted: bool,
+def _zero_bits(sr_name: str, vdtype) -> int:
+    key = (sr_name, vdtype)
+    if key not in _ZERO_BITS:
+        zero = _zero_for(sr_name, vdtype)
+        _ZERO_BITS[key] = int(zero) if vdtype == torch.int32 else \
+            struct.unpack("<i", struct.pack("<f", zero))[0]
+    return _ZERO_BITS[key]
+
+
+def _scratch_words(lib, block_len: int, total: int, n_sorted: int) -> int:
+    key = (block_len, total, n_sorted)
+    if key not in _SCRATCH_WORDS:
+        _SCRATCH_WORDS[key] = lib.hm_scratch_words(block_len, total, n_sorted)
+    return _SCRATCH_WORDS[key]
+
+
+def _launch(what: str, counter: str, srcs, block_unsorted: bool,
             sr_name: str):
-    _check_operands(srcs, what)
-    hi0, val0 = srcs[0][0], srcs[0][2]
-    dev, vdtype = hi0.device, val0.dtype
-    n = sum(s[0].shape[0] for s in srcs)
+    """One ctypes call on the current stream: the outputs and nnz are one
+    allocation, returned as views; the kernels' scratch (look-back state,
+    sorted block, fold buffers) is a second one, handed back to the caching
+    allocator on return (stream-ordered, so only work enqueued after this
+    call reuses it)."""
+    n = _check_operands(srcs, what, block_unsorted)
+    dev, vdtype = srcs[0][0].device, srcs[0][2].dtype
     lib = _lib()
-    zero = _zero_for(sr_name, vdtype)
-    is_int = int(vdtype == torch.int32)
-    zero_bits = int(zero) if is_int else \
-        struct.unpack("<i", struct.pack("<f", zero))[0]
-    key = dict(dtype=torch.int32, device=dev)
-    work = [torch.empty(n, **key), torch.empty(n, **key),
-            torch.empty(n, dtype=vdtype, device=dev)]
-    out = [torch.empty(n, **key), torch.empty(n, **key),
-           torch.empty(n, dtype=vdtype, device=dev)]
-    nnz = torch.empty(1, **key)
-    scratch = torch.empty(max(lib.hm_scratch_words(n), 1), **key)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        tail = [work[0].data_ptr(), work[1].data_ptr(), work[2].data_ptr(),
-                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                nnz.data_ptr(), scratch.data_ptr(),
-                _SR_KIND[sr_name], is_int, zero_bits, stream]
-        if first_sorted:
-            (ha, la, va), (hb, lb, vb) = srcs
-            err = lib.hm_merge(ha.data_ptr(), la.data_ptr(), va.data_ptr(),
-                               ha.shape[0], hb.data_ptr(), lb.data_ptr(),
-                               vb.data_ptr(), hb.shape[0], *tail)
-        else:
-            k = len(srcs)
-            ptrs = [(ctypes.c_void_p * k)(*[s[j].data_ptr() for s in srcs])
-                    for j in range(3)]
-            lens = (ctypes.c_int * k)(*[s[0].shape[0] for s in srcs])
-            err = lib.hm_merge_multi(ptrs[0], ptrs[1], ptrs[2], lens, k,
-                                     *tail)
+    block_len = srcs[0][0].shape[0] if block_unsorted else 0
+    n_sorted = len(srcs) - 1 if block_unsorted else len(srcs)
+    out = torch.empty(3 * n + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(_scratch_words(lib, block_len, n, n_sorted),
+                          dtype=torch.int32, device=dev)
+    args = (out.data_ptr(), scratch.data_ptr(), _SR_KIND[sr_name],
+            int(vdtype == torch.int32), _zero_bits(sr_name, vdtype),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if block_unsorted:
+        k = len(srcs)
+        ptrs = (_P * (3 * k))(*[x.data_ptr() for s in srcs for x in s])
+        lens = (_I * k)(*[s[0].shape[0] for s in srcs])
+        call = lambda: lib.hm_merge_multi(ptrs, lens, k, *args)  # noqa: E731
+    else:
+        (ha, la, va), (hb, lb, vb) = srcs
+        call = lambda: lib.hm_merge(  # noqa: E731
+            ha.data_ptr(), la.data_ptr(), va.data_ptr(), ha.shape[0],
+            hb.data_ptr(), lb.data_ptr(), vb.data_ptr(), hb.shape[0], *args)
+    if dev.index == torch.cuda.current_device():
+        err = call()
+    else:
+        with torch.cuda.device(dev):
+            err = call()
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
                            f"({lib.hm_error_string(err).decode()})")
     registry.count(counter)
-    return out[0], out[1], out[2], nnz
+    return (out[:n], out[n:2 * n], out[2 * n:3 * n].view(vdtype),
+            out[3 * n:])
 
 
 def _route(x) -> str:
@@ -276,36 +321,22 @@ def _route(x) -> str:
 
 def merge_cuda(hi_a, lo_a, val_a, hi_b, lo_b, val_b, *,
                sr_name: str = "plus.times"):
-    """Pairwise merge of two canonical segments whose total capacity is a
-    power of two (ops.py pads); returns (hi, lo, val, nnz[1]).  CPU tensors
-    run ``merge_plain``; CUDA tensors launch the kernel."""
+    """Pairwise merge of two canonical segments of any lengths; returns
+    (hi, lo, val, nnz[1]) at the summed length.  CPU tensors run
+    ``merge_plain``; CUDA tensors launch the kernel."""
     if _route(hi_a) == "cpu":
         return merge_plain(hi_a, lo_a, val_a, hi_b, lo_b, val_b,
                            sr_name=sr_name)
-    n = hi_a.shape[0] + hi_b.shape[0]
-    if n & (n - 1):
-        raise ValueError(f"merge_cuda: total capacity must be a power of 2, "
-                         f"got {n}")
     return _launch("merge_cuda", "hier_merge.merge",
-                   [(hi_a, lo_a, val_a), (hi_b, lo_b, val_b)], True, sr_name)
+                   [(hi_a, lo_a, val_a), (hi_b, lo_b, val_b)], False, sr_name)
 
 
 def merge_multi_cuda(block, runs, *, sr_name: str = "plus.times"):
     """Multi-way merge: ``block`` is an (hi, lo, val) triple of an UNSORTED
-    power-of-two-sized buffer; ``runs`` canonical (hi, lo, val) triples
-    padded (ops.py) so every cumulative size block+run_1+..+run_i is a
-    power of two.  Returns (hi, lo, val, nnz[1]) at the final size.  CPU
-    tensors run ``merge_multi_plain``; CUDA tensors launch the kernel."""
+    buffer, ``runs`` canonical (hi, lo, val) triples, all of any lengths.
+    Returns (hi, lo, val, nnz[1]) at the summed length.  CPU tensors run
+    ``merge_multi_plain``; CUDA tensors launch the kernel."""
     if _route(block[0]) == "cpu":
         return merge_multi_plain(block, runs, sr_name=sr_name)
-    size = block[0].shape[0]
-    sizes = [size]
-    for r in runs:
-        size += r[0].shape[0]
-        sizes.append(size)
-    if any(s & (s - 1) for s in sizes):
-        raise ValueError(f"merge_multi_cuda: cumulative sizes must be powers "
-                         f"of 2, got {sizes}")
     return _launch("merge_multi_cuda", "hier_merge.merge_multi",
-                   [tuple(block)] + [tuple(r) for r in runs], False, sr_name)
-
+                   [tuple(block)] + [tuple(r) for r in runs], True, sr_name)

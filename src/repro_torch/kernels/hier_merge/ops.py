@@ -1,13 +1,15 @@
 """Public wrapper for the hier_merge kernels.
 
-Handles capacity padding (bitonic networks need power-of-two totals), output
-slicing to the destination layer capacity, and overflow accounting; the
-kernel wrappers in ``hier_merge.py`` pick the CUDA kernel or its plain
-version by the operands' device.  Everything stays on the operands' device:
-no host synchronisation.
+Chooses the route by the JAX package's size rule, slices or pads the
+result to the destination layer capacity, and accounts overflow; the kernel
+wrappers in ``hier_merge.py`` take operands of any length (no padding here)
+and pick the CUDA kernel or its plain version by the operands' device.
+Everything stays on the operands' device: no host synchronisation.
 
-The kernel ceiling is N = 64K entries (``MAX_KERNEL_CAPACITY``), the same
-size rule as the JAX package's: larger merges take the sort route
+The kernel ceiling is the JAX package's: a merge takes the kernel iff its
+power-of-two padded width (the TPU's bitonic rule, ``multi_padded_capacity``)
+is at most ``MAX_KERNEL_CAPACITY`` = 64K entries, although the CUDA kernel
+itself has no such limit.  Larger merges take the sort route
 (``assoc._canonicalize`` reaches them first on the hierarchy's paths; called
 directly, this module sends them to the sort-based oracle).
 """
@@ -16,39 +18,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.hier_merge import ref
-from repro_torch.kernels.hier_merge.hier_merge import (SENTINEL,
-                                                       merge_cuda,
+from repro_torch.kernels.hier_merge.hier_merge import (merge_cuda,
                                                        merge_multi_cuda)
+from repro_torch.kernels.hier_merge.ref import _next_pow2, _pad_canonical
 
 MAX_KERNEL_CAPACITY = 1 << 16
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << (n - 1).bit_length()
-
-
 def multi_padded_capacity(block_cap: int, run_caps) -> int:
-    """Final in-kernel sequence size for a multi-way merge: the block padded
-    to a power of two, then each run padded so every cumulative size stays a
-    power of two (bitonic-stage requirement).  Compare against
-    MAX_KERNEL_CAPACITY before choosing the kernel path."""
+    """The JAX package's in-kernel sequence size for a multi-way merge: the
+    block padded to a power of two, then each run padded so every cumulative
+    size stays a power of two (the TPU's bitonic-stage requirement).  The
+    route rule compares it against MAX_KERNEL_CAPACITY."""
     cum = _next_pow2(max(block_cap, 1))
     for c in run_caps:
         cum = _next_pow2(cum + c)
     return cum
-
-
-def _pad_canonical(hi, lo, val, cap: int, zero):
-    pad = cap - hi.shape[0]
-    if pad == 0:
-        return hi.contiguous(), lo.contiguous(), val.contiguous()
-    dev = hi.device
-    return (torch.cat([hi, torch.full((pad,), SENTINEL, dtype=torch.int32,
-                                      device=dev)]),
-            torch.cat([lo, torch.full((pad,), SENTINEL, dtype=torch.int32,
-                                      device=dev)]),
-            torch.cat([val, torch.full((pad,), zero, dtype=val.dtype,
-                                       device=dev)]))
 
 
 def _finalize(hi, lo, val, nnz, out_capacity: int, zero):
@@ -73,12 +58,9 @@ def merge(hi_a, lo_a, val_a, hi_b, lo_b, val_b, *, out_capacity: int,
     zero = ref._zero_for(sr_name, val_a.dtype)
 
     if use_kernel and n <= MAX_KERNEL_CAPACITY:
-        # pad the B side; sentinel tail keeps it canonical
-        hi_b2, lo_b2, val_b2 = _pad_canonical(
-            hi_b, lo_b, val_b, n - hi_a.shape[0], zero)
         hi, lo, val, nnz = merge_cuda(
-            hi_a.contiguous(), lo_a.contiguous(), val_a.contiguous(),
-            hi_b2, lo_b2, val_b2, sr_name=sr_name)
+            *(x.contiguous() for x in (hi_a, lo_a, val_a, hi_b, lo_b, val_b)),
+            sr_name=sr_name)
     else:
         hi, lo, val, nnz = ref.merge_ref(hi_a, lo_a, val_a, hi_b, lo_b, val_b,
                                          sr_name=sr_name)
@@ -93,8 +75,8 @@ def merge_multi(block_hi, block_lo, block_val, *run_arrays,
     segment of ``out_capacity``; returns (hi, lo, val, nnz, overflow).
 
     This is the fused spill cascade's kernel entry point: below the ceiling
-    the whole chain runs as ONE kernel call whose sorted runs are bitonic-
-    merged rather than re-sorted; above it, one sort canonicalizes
+    the whole chain runs as ONE kernel call that sorts only the block and
+    merges the sorted runs in; above it, one sort canonicalizes
     everything."""
     if len(run_arrays) % 3:
         raise ValueError("runs must be (hi, lo, val) triples")
@@ -104,18 +86,10 @@ def merge_multi(block_hi, block_lo, block_val, *run_arrays,
                                    [r[0].shape[0] for r in runs])
 
     if use_kernel and padded <= MAX_KERNEL_CAPACITY:
-        cum = _next_pow2(max(block_hi.shape[0], 1))
-        # SENTINEL padding is canonical: sorted runs stay sorted, and the
-        # unsorted block's sentinels are just more keys for the first sort.
-        block = _pad_canonical(block_hi, block_lo, block_val, cum, zero)
-        padded_runs = []
-        for rhi, rlo, rval in runs:
-            nxt = _next_pow2(cum + rhi.shape[0])
-            padded_runs.append(
-                _pad_canonical(rhi, rlo, rval, nxt - cum, zero))
-            cum = nxt
-        hi, lo, val, nnz = merge_multi_cuda(block, padded_runs,
-                                            sr_name=sr_name)
+        hi, lo, val, nnz = merge_multi_cuda(
+            (block_hi.contiguous(), block_lo.contiguous(),
+             block_val.contiguous()),
+            [tuple(x.contiguous() for x in r) for r in runs], sr_name=sr_name)
     else:
         hi, lo, val, nnz = ref.merge_multi_ref(
             [block_hi] + [r[0] for r in runs],

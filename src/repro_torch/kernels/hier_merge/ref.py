@@ -33,6 +33,23 @@ def _as_tensor(x) -> torch.Tensor:
         if isinstance(x, np.ndarray) else x
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+def _pad_canonical(hi, lo, val, cap: int, zero):
+    """Append (SENTINEL, SENTINEL, zero) entries up to length ``cap``: a
+    canonical tail, and for an unsorted block more keys that sort last."""
+    pad = cap - hi.shape[0]
+    if pad == 0:
+        return hi, lo, val
+    dev = hi.device
+    fill = torch.full((pad,), SENTINEL, dtype=torch.int32, device=dev)
+    return (torch.cat([hi, fill]), torch.cat([lo, fill]),
+            torch.cat([val, torch.full((pad,), zero, dtype=val.dtype,
+                                       device=dev)]))
+
+
 def merge_ref(hi_a, lo_a, val_a, hi_b, lo_b, val_b, *,
               sr_name: str = "plus.times"):
     """Merge two canonical segments; returns (hi, lo, val, nnz[1])."""

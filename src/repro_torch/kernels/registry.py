@@ -127,8 +127,10 @@ def _merge_inputs(cap_a: int, cap_b: int, nkeys: int, dtype, sr_name: str):
 
 def _merge_multi_inputs(block: int, run_caps: Tuple[int, ...], nkeys: int,
                         dtype, sr_name: str):
-    """Operands pre-padded the way ops.merge_multi pads them: block to a
-    power of two, then each run so every cumulative size stays one."""
+    """Operands pre-padded the way the JAX package's ops.merge_multi pads
+    them (block to a power of two, then each run so every cumulative size
+    stays one), so they are the reference job's bit for bit; the CUDA
+    kernel takes them as any other lengths."""
     def next_pow2(n):
         return 1 << (n - 1).bit_length()
 

@@ -41,3 +41,11 @@ def test_gnn_phase_on_cpu():
     assert res["launches"] == 0
     assert res["graphcast_max_rel_err"] == 0.0 == res["gat_max_rel_err"]
     assert res["graphcast_degree_max_mean"][0] >= 5
+
+
+def test_profile_merge_needs_a_card():
+    """The merge profiler measures on the card only: without one it exits
+    with 2 and prints no result."""
+    from repro_torch.launch import profile_merge
+    want = 0 if torch.cuda.is_available() else 2
+    assert profile_merge.main() == want

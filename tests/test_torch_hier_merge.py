@@ -181,3 +181,215 @@ def test_zero_for_matches_reference():
         for td, nd in ((torch.float32, np.float32), (torch.int32, np.int32)):
             assert np.asarray(tref._zero_for(sr_name, td), nd) == \
                 jref._zero_for(sr_name, np.dtype(nd))
+
+
+# ------------------------------------------- operands of any length ------
+
+def _np_block(rng, n, nkeys, dtype):
+    return (rng.integers(0, nkeys, n).astype(np.int32),
+            rng.integers(-nkeys, nkeys, n).astype(np.int32),
+            (rng.integers(-5, 5, n) if dtype == np.int32
+             else rng.normal(size=n)).astype(dtype))
+
+
+def _np_pad(x, n, zero):
+    """Append SENTINEL keys (zero values) up to length ``n``."""
+    hi, lo, val = x
+    pad = n - hi.shape[0]
+    fill = np.full((pad,), tref.SENTINEL, np.int32)
+    return (np.concatenate([hi, fill]), np.concatenate([lo, fill]),
+            np.concatenate([val, np.full((pad,), zero, val.dtype)]))
+
+
+def _next_pow2(n):
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+@pytest.mark.parametrize("sr_name,dtype", [("plus.times", np.float32),
+                                           ("max.plus", np.float32),
+                                           ("min.plus", np.int32)])
+@pytest.mark.parametrize("block,run_caps", [(100, (150,)), (37, (50, 90)),
+                                            (300, ()), (5, (257,))])
+def test_multi_any_length_matches_pallas(block, run_caps, sr_name, dtype):
+    """``merge_multi_cuda`` (its plain version on the CPU) takes operands of
+    any length and returns a segment of the summed length: equal to the
+    Pallas kernel in interpret mode on the same operands padded with
+    sentinels (sliced back), and to the sort-based oracle."""
+    from repro.kernels.hier_merge import hier_merge as jhm
+    rng = np.random.default_rng(block + len(run_caps))
+    zero = treg._np_zero(sr_name, np.dtype(dtype))
+    b = _np_block(rng, block, 60, dtype)
+    runs = [treg._canonical_segment(rng, c, 60, dtype, sr_name)
+            for c in run_caps]
+    n = block + sum(run_caps)
+    cum = _next_pow2(block)
+    jb, jruns = _np_pad(b, cum, zero), []
+    for r in runs:
+        nxt = _next_pow2(cum + r[0].shape[0])
+        jruns.append(_np_pad(r, nxt - cum, zero))
+        cum = nxt
+    want = jhm.merge_multi_pallas(tuple(map(jnp.asarray, jb)),
+                                  [tuple(map(jnp.asarray, r)) for r in jruns],
+                                  sr_name=sr_name, interpret=True)
+    want = [np.asarray(x)[:n] for x in want[:3]] + [np.asarray(want[3])]
+    treg.reset_launches()
+    got = thm.merge_multi_cuda(tuple(map(torch.from_numpy, b)),
+                               [tuple(map(torch.from_numpy, r)) for r in runs],
+                               sr_name=sr_name)
+    assert treg.launches()["hier_merge.merge_multi"] == 0
+    assert got[0].shape == (n,)
+    exact = dtype == np.int32
+    _assert_out(got, want, exact, tp.RTOL)
+    oracle = tref.merge_multi_ref(
+        [torch.from_numpy(b[0])] + [torch.from_numpy(r[0]) for r in runs],
+        [torch.from_numpy(b[1])] + [torch.from_numpy(r[1]) for r in runs],
+        [torch.from_numpy(b[2])] + [torch.from_numpy(r[2]) for r in runs],
+        sr_name=sr_name)
+    _assert_out(got, oracle, exact, tp.RTOL)
+
+
+@pytest.mark.parametrize("caps", [(100, 60), (250, 7), (1, 300)])
+def test_pair_any_length_matches_pallas(caps):
+    from repro.kernels.hier_merge import hier_merge as jhm
+    rng = np.random.default_rng(sum(caps))
+    a = treg._canonical_segment(rng, caps[0], 80, np.float32, "plus.times")
+    b = treg._canonical_segment(rng, caps[1], 80, np.float32, "plus.times")
+    n = sum(caps)
+    jb = _np_pad(b, _next_pow2(n) - caps[0], np.float32(0))
+    want = jhm.merge_pallas(*map(jnp.asarray, a + jb), interpret=True)
+    want = [np.asarray(x)[:n] for x in want[:3]] + [np.asarray(want[3])]
+    got = thm.merge_cuda(*map(torch.from_numpy, a + b))
+    assert got[0].shape == (n,)
+    _assert_out(got, want, False, tp.RTOL)
+    _assert_out(got, tref.merge_ref(*map(torch.from_numpy, a + b)), False,
+                tp.RTOL)
+
+
+@pytest.mark.parametrize("out_cap", [200, 700, 1024, 1500])
+@pytest.mark.parametrize("block,run_caps", [(96, (400, 300)), (300, (500,)),
+                                            (513, ())])
+def test_ops_merge_multi_unpadded_matches(block, run_caps, out_cap):
+    """``ops.merge_multi`` no longer pads for the kernel route; results,
+    nnz and overflow equal the JAX package's at shapes where the padded
+    width (1024 / 2048) differs from the total, with ``out_capacity``
+    below, between and above both."""
+    rng = np.random.default_rng(block + out_cap)
+    b = _np_block(rng, block, 300, np.float32)
+    runs = [x for c in run_caps for x in treg._canonical_segment(
+        rng, c, 300, np.float32, "plus.times")]
+    want = jops.merge_multi(*map(jnp.asarray, b + tuple(runs)),
+                            out_capacity=out_cap, use_kernel=False)
+    got = tops.merge_multi(*map(torch.from_numpy, b + tuple(runs)),
+                           out_capacity=out_cap)
+    assert got[0].shape == (out_cap,)
+    _assert_out(got[:4], want[:4], False, tp.RTOL)
+    assert int(got[4]) == int(want[4])
+
+
+@pytest.mark.parametrize("out_cap", [100, 600, 1024, 2000])
+@pytest.mark.parametrize("caps", [(300, 300), (1000, 24), (513, 1)])
+def test_ops_merge_unpadded_matches(caps, out_cap):
+    rng = np.random.default_rng(caps[0] + out_cap)
+    a = treg._canonical_segment(rng, caps[0], 10**4, np.int32, "plus.times")
+    b = treg._canonical_segment(rng, caps[1], 10**4, np.int32, "plus.times")
+    want = jops.merge(*map(jnp.asarray, a + b), out_capacity=out_cap,
+                      use_kernel=False)
+    got = tops.merge(*map(torch.from_numpy, a + b), out_capacity=out_cap)
+    assert got[0].shape == (out_cap,)
+    _assert_out(got[:4], want[:4], True, 0)
+    assert int(got[4]) == int(want[4])
+
+
+@pytest.mark.parametrize("block,run_caps", [
+    (3072, (16384,)), (3072, (16384, 131072)), (1024, ()), (32768, (1,)),
+    (32769, ()), (40000, (20000,)), (16384, (16384, 16384)), (1, (65535,)),
+    (2, (65535,))])
+def test_route_rule_matches_reference(block, run_caps, monkeypatch):
+    """The kernel route is taken exactly when the JAX package's
+    ``multi_padded_capacity(...) <= MAX_KERNEL_CAPACITY`` holds, although
+    the CUDA kernel itself takes any length."""
+    assert tops.MAX_KERNEL_CAPACITY == jops.MAX_KERNEL_CAPACITY
+    assert tops.multi_padded_capacity(block, run_caps) == \
+        jops.multi_padded_capacity(block, run_caps)
+    routes = []
+    monkeypatch.setattr(tops, "merge_multi_cuda",
+                        lambda *a, **k: routes.append("kernel") or
+                        (torch.zeros(1, dtype=torch.int32),) * 2
+                        + (torch.zeros(1), torch.zeros(1, dtype=torch.int32)))
+    monkeypatch.setattr(tops.ref, "merge_multi_ref",
+                        lambda *a, **k: routes.append("sort") or
+                        (torch.zeros(1, dtype=torch.int32),) * 2
+                        + (torch.zeros(1), torch.zeros(1, dtype=torch.int32)))
+    key = torch.zeros(block, dtype=torch.int32)
+    run_arrays = []
+    for c in run_caps:
+        run_arrays += [torch.zeros(c, dtype=torch.int32)] * 2 + \
+            [torch.zeros(c)]
+    tops.merge_multi(key, key, torch.zeros(block), *run_arrays,
+                     out_capacity=1)
+    want = "kernel" if jops.multi_padded_capacity(block, run_caps) <= \
+        jops.MAX_KERNEL_CAPACITY else "sort"
+    assert routes == [want]
+
+
+@pytest.mark.parametrize("bad", ["val_dtype", "key_dtype", "strided",
+                                 "lengths", "two_d", "devices"])
+def test_cuda_argument_checks_raise_before_launch(bad):
+    """The CUDA route's argument checks run before anything is built or
+    launched (``meta`` tensors stand in for card tensors)."""
+    def op(n, vdtype=torch.float32):
+        return [torch.empty(n, dtype=torch.int32, device="meta"),
+                torch.empty(n, dtype=torch.int32, device="meta"),
+                torch.empty(n, dtype=vdtype, device="meta")]
+
+    block, run = op(40), op(24)
+    if bad == "val_dtype":
+        block[2] = torch.empty(40, dtype=torch.float64, device="meta")
+    elif bad == "key_dtype":
+        run[0] = torch.empty(24, dtype=torch.int64, device="meta")
+    elif bad == "strided":
+        run[1] = torch.empty(48, dtype=torch.int32, device="meta")[::2]
+    elif bad == "lengths":
+        run[2] = torch.empty(23, device="meta")
+    elif bad == "two_d":
+        block = [x.reshape(8, 5) for x in block]
+    else:
+        run[2] = torch.empty(24)
+    thm._BOUND.pop("lib", None)
+    treg.reset_launches()
+    with pytest.raises((TypeError, ValueError)):
+        thm._launch("merge_multi_cuda", "hier_merge.merge_multi",
+                    [tuple(block), tuple(run)], True, "plus.times")
+    assert "lib" not in thm._BOUND
+    assert treg.launches()["hier_merge.merge_multi"] == 0
+
+
+@pytest.mark.parametrize("block_len,run_lens,ok", [
+    (256 * 4096, [0], True),                # 256 chunks, the run is empty
+    (256 * 4096, [7], False),               # 256 chunks + 1 run
+    (256 * 4096 + 1, [], False),            # 257 chunks
+    (4096, [5] * 255, True),                # 1 chunk + 255 runs
+    (4097, [5] * 255, False),               # 2 chunks + 255 runs
+    (0, [5] * 256, True),                   # no block, 256 runs
+])
+def test_cuda_operand_limit_checked_before_launch(block_len, run_lens, ok):
+    """More sorted operands (the block's chunks plus the non-empty runs)
+    than the C side takes are refused with a ValueError that says so,
+    before anything is built or launched."""
+    def op(n):
+        return tuple(torch.empty(n, dtype=dt, device="meta")
+                     for dt in (torch.int32, torch.int32, torch.float32))
+
+    srcs = [op(block_len)] + [op(n) for n in run_lens]
+    assert thm.MAX_SORTED_OPERANDS == 256 and thm.RANK_CHUNK == 4096
+    if ok:
+        assert thm._check_operands(srcs, "merge_multi_cuda", True) == \
+            block_len + sum(run_lens)
+        return
+    thm._BOUND.pop("lib", None)
+    treg.reset_launches()
+    with pytest.raises(ValueError, match="sorted operands, at most 256"):
+        thm._launch("merge_multi_cuda", "hier_merge.merge_multi", srcs, True,
+                    "plus.times")
+    assert "lib" not in thm._BOUND
+    assert treg.launches()["hier_merge.merge_multi"] == 0
