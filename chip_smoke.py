@@ -49,14 +49,26 @@ caught and passed over):
    ``full_graph_sm`` shape (2,708 nodes, 10,556 edges, 1,433 features):
    exactly 16 and 2 ``segment_sum`` launches per forward, and the kernel
    route within a max relative error of 1e-3 (GraphCast) and 1e-4 (GAT) of
-   the ``index_add_`` route, with TF32 off.
+   the ``index_add_`` route, with TF32 off; the aten operators run inside
+   the 16 ``ops.segment_sum`` calls of one GraphCast forward hold no copy
+   of the messages (no ``cat``, ``index``, ``gather``, ``index_select``).
 
 Phase 3 also holds the ``embedding_bag`` and ``segment_agg`` kernels
 against their plain versions (and oracles) on their registry jobs, then
 times kernel, plain version and the PyTorch library call computing the
 same function (``F.embedding_bag``, ``index_add_``; timed only, never on
 the path) at the paths' shapes: ``serve_bulk`` on the full table, and
-GraphCast's processor graph.
+GraphCast's processor graph.  ``segment_sum`` is held bit for bit against
+its plain version, reading the unsorted messages through the sort order
+and reading them gathered, at GraphCast's graph (D = 512), GAT-Cora's
+(D = 64 and 7), a node with 5,000 edges, runs of exactly one chunk, empty
+nodes, ids below 0 and at or above N, E = 0, D = 12, D = 640 and unaligned
+rows, and against ``index_add_`` within rtol 2e-5 (``segment_checks``);
+its row has the kernel's and the whole ``ops.segment_sum``'s milliseconds
+and device µs and kernels per call, ``index_add_`` on the unsorted and on
+the sorted messages, GAT-Cora's numbers, and under ``prev_shape`` the
+kernel on the JAX kernel's staged operands (sorted messages, padded),
+which the node-tiled kernel read.
 
 It prints the card line, one JSON line with every kernel's numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
@@ -392,7 +404,7 @@ def kernel_phase(torch, registry, hm, assoc, sr_mod):
     return results
 
 
-def path_kernel_phase(torch, mesh):
+def path_kernel_phase(torch, mesh, gat_dst):
     """Phase 3, second part: the embedding_bag and segment_sum kernels at
     their paths' shapes against their plain versions and the library
     calls; returns each kernel's numbers."""
@@ -400,8 +412,7 @@ def path_kernel_phase(torch, mesh):
     from repro_torch.configs import dcn_v2
     from repro_torch.data import synthetic
     from repro_torch.kernels.embedding_bag import embedding_bag as eb
-    from repro_torch.kernels.segment_agg import ops as sa_ops
-    from repro_torch.kernels.segment_agg import segment_agg as sa
+    from repro_torch.launch.profile_merge import merge_profile
     from repro_torch.models import dcn
 
     def measure(name, shape, kern, plain, library, nbytes, ops):
@@ -415,13 +426,16 @@ def path_kernel_phase(torch, mesh):
         ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain, 5, 1), \
             time_ms(library)
         bound_ms, bound_by = roofline(nbytes, ops)
+        prof = merge_profile(torch, kern)
         print(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), bit-equal to plain: {exact}, max_abs_err "
-              f"{err:.3g}", flush=True)
+              f"{err:.3g}, device_us {prof['device_us']:.2f}, "
+              f"kernels_per_call {prof['kernels_per_call']:g}", flush=True)
         return dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-                    sort_route_ms=None)
+                    sort_route_ms=None, device_us=prof["device_us"],
+                    kernels_per_call=prof["kernels_per_call"])
 
     out = {}
     cfg = dcn_v2.config()
@@ -448,22 +462,190 @@ def path_kernel_phase(torch, mesh):
     del table, sparse, idx, w, idx64
     torch.cuda.empty_cache()
 
-    _, _, dst = mesh
-    n, d = len(mesh[0]), 512
-    e = len(dst)
-    msg = torch.randn((e, d), generator=gen, device="cuda")
-    seg = torch.as_tensor(dst, device="cuda")
-    m, s, starts, t = sa_ops.stage(msg, seg, num_segments=n)
-    seg_sorted, msg_sorted = s[:e].long(), m[:e]
-    out["segment_agg.segment_sum"] = measure(
-        "segment_agg.segment_sum",
-        f"graphcast r6 E={e} D={d} N={n}",
-        lambda: sa.segment_sum_cuda(m, s, starts, t),
-        lambda: sa.segment_sum_plain(m, s, starts, t),
-        lambda: torch.zeros((n, d), device="cuda").index_add_(
-            0, seg_sorted, msg_sorted),
-        m.shape[0] * (4 * d + 4) + 4 * t * sa_ops.TN * d, e * d)
+    out["segment_agg.segment_sum"] = segment_phase(torch, gen, mesh,
+                                                   gat_dst)
     return out
+
+
+# kernel names of an [E, D] copy: torch.cat, an advanced-index gather,
+# index_select
+COPY_KERNELS = ("catarray", "gather", "index_elementwise", "indexselect")
+
+
+def segment_case_list(np, mesh, gat_dst):
+    """Phase 3's segment_sum cases: (label, ids [E] int32, N, D, values),
+    values "normal" or "dyadic" (multiples of 1/8, whose sums are exact in
+    any order)."""
+    from repro_torch.kernels.segment_agg.segment_agg import CHUNK
+    rng = np.random.default_rng(3)
+    hub = rng.integers(0, 1000, 8000).astype(np.int32)
+    hub[rng.permutation(8000)[:5000]] = 17          # 5,000 edges to node 17
+    gaps = rng.integers(0, 5000, 3000).astype(np.int32)
+    gaps[(gaps > 1000) & (gaps < 4000)] = 1000      # nodes 1001..3999 empty
+    n_gat = 2708
+    return [
+        ("graphcast r6", np.asarray(mesh[2]), len(mesh[0]), 512, "normal"),
+        ("gat-cora D=64", gat_dst, n_gat, 64, "normal"),
+        ("gat-cora D=7", gat_dst, n_gat, 7, "normal"),
+        ("hub 5000 of 8000", hub, 1000, 128, "normal"),
+        ("hub 5000 of 8000 dyadic", hub, 1000, 128, "dyadic"),
+        ("runs of one chunk", np.repeat(np.arange(100, dtype=np.int32),
+                                        CHUNK)[rng.permutation(100 * CHUNK)],
+         100, 64, "normal"),
+        ("empty nodes", gaps, 5000, 32, "normal"),
+        ("dropped ids", rng.integers(-50, 1050, 4000).astype(np.int32), 1000,
+         64, "normal"),
+        ("E=0", np.zeros(0, np.int32), 300, 16, "normal"),
+        ("D=12", rng.integers(0, 500, 2000).astype(np.int32), 500, 12,
+         "normal"),
+        ("D=640 two slices", rng.integers(0, 3000, 20000).astype(np.int32),
+         3000, 640, "normal"),
+        ("gat-cora D=64 unaligned rows", gat_dst, n_gat, 64, "unaligned"),
+    ]
+
+
+def segment_checks(torch, gen, cases, device="cuda"):
+    """Each case through ``segment_sum_cuda`` with ``order`` (the unsorted
+    messages read in place) and without (the gathered, sorted messages),
+    both equal to ``segment_sum_plain`` and to each other bit for bit;
+    ``ops.segment_sum`` (and with ``assume_sorted`` on the sorted ones)
+    equal to them; and against ``index_add_`` within rtol 2e-5, exactly
+    for dyadic values.  The 5,000-edge hub with normal values is not held
+    against ``index_add_``: its 5,000-term sums cancel to near 0 in some
+    columns, where two float32 orders of addition differ by more than
+    2e-5 (its dyadic twin checks the same edges exactly).  Returns the
+    largest difference from ``index_add_``."""
+    from repro_torch.kernels.segment_agg import ops as sa_ops
+    from repro_torch.kernels.segment_agg import ref as sa_ref
+    from repro_torch.kernels.segment_agg import segment_agg as sa
+    worst = 0.0
+    for label, ids, n, d, values in cases:
+        seg = torch.as_tensor(ids, device=device)
+        e = seg.shape[0]
+        msg = torch.randn((e, d), generator=gen, device=device)
+        if values == "dyadic":
+            msg = torch.round(msg * 8) / 8
+        elif values == "unaligned":
+            buf = torch.empty(e * d + 1, device=device)
+            buf[1:] = msg.reshape(-1)
+            msg = buf[1:].view(e, d)              # rows 4 bytes off 16
+        order, s, starts, t = sa_ops.stage(seg, num_segments=n)
+        msg_sorted = msg[order.long()]
+        got = sa.segment_sum_cuda(msg, s, starts, t, order=order)
+        got_sorted = sa.segment_sum_cuda(msg_sorted, s, starts, t)
+        for what, x in (
+                ("plain with order",
+                 sa.segment_sum_plain(msg, s, starts, t, order=order)),
+                ("kernel without order", got_sorted),
+                ("plain without order",
+                 sa.segment_sum_plain(msg_sorted, s, starts, t)),
+                ("ops.segment_sum",
+                 sa_ops.segment_sum(msg, seg, num_segments=n)),
+                ("ops.segment_sum assume_sorted",
+                 sa_ops.segment_sum(msg_sorted, s, num_segments=n,
+                                    assume_sorted=True))):
+            if not torch.equal(got[:x.shape[0]], x):
+                raise AssertionError(f"segment_sum {label}: kernel with "
+                                     f"order != {what}")
+        lib = sa_ref.segment_sum_ref(msg, seg, n)
+        if values == "dyadic" and not torch.equal(got[:n], lib):
+            raise AssertionError(f"segment_sum {label}: != index_add_")
+        if label != "hub 5000 of 8000":
+            worst = max(worst, dense_compare(got[:n], lib, DENSE_TOL,
+                                             f"segment_sum {label} vs "
+                                             f"index_add_"))
+        print(f"segment_sum {label}: E={e} D={d} N={n}: kernel with and "
+              f"without order == plain == ops.segment_sum, bit for bit",
+              flush=True)
+    return worst
+
+
+def segment_phase(torch, gen, mesh, gat_dst):
+    """Phase 3, segment_sum: the checks of ``segment_checks``, then at
+    GraphCast's processor graph the kernel (messages read through the sort
+    order), the whole ``ops.segment_sum``, the plain version, and
+    ``index_add_`` on the unsorted messages (the same function as
+    ``ops.segment_sum``) and on the sorted ones, with device µs and
+    kernels per call; the kernel on the JAX kernel's staged operands
+    (sorted messages padded to ceil(E/128)*128 + 128 rows) as
+    ``prev_shape``; and GAT-Cora's graph at D = 64."""
+    import numpy as np
+    from repro_torch.kernels.segment_agg import ops as sa_ops
+    from repro_torch.kernels.segment_agg import ref as sa_ref
+    from repro_torch.kernels.segment_agg import segment_agg as sa
+    from repro_torch.launch.profile_merge import merge_profile
+
+    worst = segment_checks(torch, gen, segment_case_list(np, mesh, gat_dst))
+
+    def measure(n, d, dst):
+        seg = torch.as_tensor(dst, device="cuda")
+        e = seg.shape[0]
+        msg = torch.randn((e, d), generator=gen, device="cuda")
+        order, s, starts, t = sa_ops.stage(seg, num_segments=n)
+        msg_sorted = msg[order.long()]
+        seg64, sorted64 = seg.long(), s.long()
+
+        def kern():
+            return sa.segment_sum_cuda(msg, s, starts, t, order=order)
+
+        def ops_call():
+            return sa_ops.segment_sum(msg, seg, num_segments=n)
+
+        prof, ops_prof = merge_profile(torch, kern), merge_profile(torch,
+                                                                   ops_call)
+        copies = [k for k in ops_prof["kernels"]
+                  if any(c in k.lower() for c in COPY_KERNELS)]
+        if copies:
+            raise AssertionError(f"ops.segment_sum copies the messages: "
+                                 f"{copies}")
+        bound_ms, bound_by = roofline(e * (4 * d + 4) + 4 * n * d, e * d)
+        err = float((kern() - sa.segment_sum_plain(msg, s, starts, t,
+                                                   order=order))
+                    .abs().max())
+        rec = dict(
+            shape=f"E={e} D={d} N={n}", max_abs_err=err, ms=time_ms(kern),
+            ops_ms=time_ms(ops_call),
+            plain_ms=time_ms(lambda: sa.segment_sum_plain(
+                msg, s, starts, t, order=order), 5, 1),
+            library_ms=time_ms(lambda: torch.zeros(
+                (n, d), device="cuda").index_add_(0, seg64, msg)),
+            library_sorted_ms=time_ms(lambda: torch.zeros(
+                (n, d), device="cuda").index_add_(0, sorted64, msg_sorted)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            device_us=prof["device_us"],
+            kernels_per_call=prof["kernels_per_call"],
+            ops_device_us=ops_prof["device_us"],
+            ops_kernels_per_call=ops_prof["kernels_per_call"],
+            ops_kernels=ops_prof["kernels"])
+        return rec, (msg, seg, s, starts, t, order)
+
+    n = len(mesh[0])
+    gc, (msg, seg, s, starts, t, order) = measure(n, 512, np.asarray(mesh[2]))
+    e, d = msg.shape
+    # the JAX kernel's staged operands: sorted messages, a spare block
+    m_pad, s_pad, st_pad, t_pad = sa_ref.staged_operands(msg, seg, n)
+    e_pad = m_pad.shape[0]
+    if not torch.equal(sa.segment_sum_cuda(m_pad, s_pad, st_pad, t_pad),
+                       sa.segment_sum_cuda(msg, s, starts, t, order=order)):
+        raise AssertionError("segment_sum: staged operands != order")
+    prev = merge_profile(torch, lambda: sa.segment_sum_cuda(m_pad, s_pad,
+                                                            st_pad, t_pad))
+    gc["prev_shape"] = dict(
+        shape=f"staged (sorted, padded) E_pad={e_pad} D={d}",
+        ms=time_ms(lambda: sa.segment_sum_cuda(m_pad, s_pad, st_pad, t_pad)),
+        device_us=prev["device_us"], kernels_per_call=prev["kernels_per_call"],
+        bound_ms=roofline(e_pad * (4 * d + 4) + 4 * t * sa_ops.TN * d,
+                          e * d)[0])
+    del m_pad, s_pad, msg
+    gat, _ = measure(2708, 64, gat_dst)
+    gc.update(shape=f"graphcast r6 {gc['shape']}",
+              max_abs_err_vs_index_add=worst, sort_route_ms=None,
+              gat_cora={k: gat[k] for k in (
+                  "shape", "max_abs_err", "ms", "ops_ms", "library_ms",
+                  "bound_ms", "device_us", "kernels_per_call", "ops_device_us",
+                  "ops_kernels_per_call")})
+    print("segment_agg.segment_sum: " + json.dumps(gc), flush=True)
+    return gc
 
 
 def device_profile(torch, fn, top: int = 6) -> dict:
@@ -625,6 +807,15 @@ def gnn_phase(torch, gc_cfg, gc_graph, gat_cfg, gat_graph, n_classes, *,
                                  f"max relative error {rel} > {bound}")
     if registry.launches()[key] != launches:
         raise AssertionError("the index_add_ route launched the kernel")
+    calls, staging = segment_staging_ops(
+        torch, lambda: gnn.forward(gc_params, gc_cfg, gc_graph))
+    if calls != gc_cfg.n_layers:
+        raise AssertionError(f"{calls} ops.segment_sum calls in a GraphCast "
+                             f"forward, want {gc_cfg.n_layers}")
+    if on_card and COPY_OPS & set(staging):
+        raise AssertionError(f"ops.segment_sum copies the messages: "
+                             f"{sorted(COPY_OPS & set(staging))}")
+    res["graphcast_segment_sum_ops"] = staging
     for name, params, cfg, graph in (("graphcast", gc_params, gc_cfg,
                                       gc_graph),
                                      ("gat", gat_params, gat_cfg, gat_graph)):
@@ -640,6 +831,49 @@ def gnn_phase(torch, gc_cfg, gc_graph, gat_cfg, gat_graph, n_classes, *,
                 flush=True)
     print(json.dumps(res), flush=True)
     return res
+
+
+# aten operators that copy the messages: none runs inside ops.segment_sum
+COPY_OPS = {"aten::cat", "aten::index", "aten::gather", "aten::index_select",
+            "aten::take"}
+
+
+def segment_staging_ops(torch, fn):
+    """(calls, {operator: count}): the calls of ``ops.segment_sum`` made
+    during ``fn()`` and the aten operators run inside them (the staging and
+    the wrapper), under ``torch.profiler`` with each call in a
+    ``record_function`` scope for this one run."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.segment_agg import ops as sa_ops
+    scope = "segment_agg.ops.segment_sum"
+    inner = sa_ops.segment_sum
+
+    def scoped(*args, **kwargs):
+        with record_function(scope):
+            return inner(*args, **kwargs)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    sa_ops.segment_sum = scoped
+    try:
+        with profile(activities=activities) as prof:
+            fn()
+    finally:
+        sa_ops.segment_sum = inner
+    names = {}
+
+    def walk(ev):
+        for child in ev.cpu_children:
+            names[child.name] = names.get(child.name, 0) + 1
+            walk(child)
+
+    # with CUDA activity the scope also shows as a device annotation
+    calls = [ev for ev in prof.events() if ev.name == scope
+             and ev.device_type == torch.autograd.DeviceType.CPU]
+    for ev in calls:
+        walk(ev)
+    return len(calls), names
 
 
 def ingest_args(**kw):
@@ -713,7 +947,11 @@ def main() -> int:
     mesh = graphs.icosahedral_multimesh(6)
     print(f"multimesh r=6: {len(mesh[0])} nodes, {len(mesh[1])} edges in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    numbers.update(path_kernel_phase(torch, mesh))
+    cora = GNN_SHAPES["full_graph_sm"]
+    gat_graph = graphs.random_graph(6, cora["n_nodes"], cora["n_edges"],
+                                    cora["d_feat"], cora["n_classes"],
+                                    device="cuda")
+    numbers.update(path_kernel_phase(torch, mesh, gat_graph["edge_dst"]))
 
     phase("4 main path: d4m_stream geometry, fused, lazy layer 0, grouped, "
           "kernel")
@@ -840,10 +1078,6 @@ def main() -> int:
                               device="cuda"),
         edge_src=torch.as_tensor(mesh[1], device="cuda"),
         edge_dst=torch.as_tensor(mesh[2], device="cuda"))
-    cora = GNN_SHAPES["full_graph_sm"]
-    gat_graph = graphs.random_graph(6, cora["n_nodes"], cora["n_edges"],
-                                    cora["d_feat"], cora["n_classes"],
-                                    device="cuda")
     gnn_res = gnn_phase(torch, gc_cfg, gc_graph,
                         dataclasses.replace(gat_cora.config(),
                                             use_kernel=True),
@@ -877,8 +1111,8 @@ def main() -> int:
             sort_route_ms=rec["sort_route_ms"], shape=rec["shape"],
             device_us=rec.get("device_us"),
             kernels_per_call=rec.get("kernels_per_call")))
-        if "prev_shape" in rec:
-            kernels[-1]["prev_shape"] = rec["prev_shape"]
+        kernels[-1].update({k: v for k, v in rec.items()
+                            if k not in kernels[-1] and k != "ops_kernels"})
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

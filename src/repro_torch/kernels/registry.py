@@ -165,22 +165,21 @@ def _embedding_inputs(vocab: int, d: int, bags: int, bag: int):
 
 
 def _segment_inputs(e: int, d: int, num_tiles: int, tn: int, kb: int):
-    """Pre-sorted, block-padded operands exactly as ops.segment_sum stages
-    them (sort by segment, pad a full spare block, searchsorted starts)."""
+    """Pre-sorted, block-padded operands exactly as the JAX package's
+    ops.segment_sum stages them (sort by segment, pad a full spare block,
+    searchsorted starts): the wrapper's form without ``order``."""
     def make(seed: int) -> tuple:
+        import torch
+
+        from repro_torch.kernels.segment_agg import ref
         rng = np.random.default_rng(seed)
         num_segments = num_tiles * tn
         seg = np.sort(rng.integers(0, num_segments, e)).astype(np.int32)
         msg = rng.normal(size=(e, d)).astype(np.float32)
-        e_pad = (e + kb - 1) // kb * kb + kb
-        seg_pad = np.concatenate(
-            [seg, np.full((e_pad - e,), num_segments, np.int32)])
-        msg_pad = np.concatenate(
-            [msg, np.zeros((e_pad - e, d), np.float32)])
-        boundaries = np.arange(num_tiles + 1, dtype=np.int32) * tn
-        starts = np.searchsorted(seg_pad, boundaries,
-                                 side="left").astype(np.int32)
-        return msg_pad, seg_pad, starts
+        staged = ref.staged_operands(torch.from_numpy(msg),
+                                     torch.from_numpy(seg), num_segments,
+                                     tn=tn, kb=kb)
+        return tuple(x.numpy() for x in staged[:3])
     return make
 
 

@@ -1,29 +1,33 @@
 """Sorted segment-sum kernel — GNN message passing ``out[dst] += msg[e]`` on
 Hopper.
 
-``segment_sum_cuda`` launches the hand-written CUDA C++ kernel of
-``csrc/segment_agg.cu`` (``sm_90a``), which replaces the Pallas kernel
-``repro/kernels/segment_agg/segment_agg.py::segment_sum_pallas`` and keeps
-its operand contract, staged by ``ops.segment_sum``:
+``segment_sum_cuda`` launches the hand-written CUDA C++ kernels of
+``csrc/segment_agg.cu`` (``sm_90a``), which replace the Pallas kernel
+``repro/kernels/segment_agg/segment_agg.py::segment_sum_pallas``.  Its
+operands, staged by ``ops.segment_sum``:
 
-``messages``     [E_pad, D] f32, sorted by segment id;
-``seg_ids``      [E_pad] int32 ascending; padding rows carry ids
-                 >= num_tiles * tn;
-``tile_starts``  [num_tiles + 1] int32: tile t owns the edges
-                 [tile_starts[t], tile_starts[t + 1]), whose ids lie in
-                 [t * tn, (t + 1) * tn);
+``messages``     [E, D] f32: the rows in edge order when ``order`` is
+                 given (sorted edge ``e`` is row ``order[e]``, read in
+                 place), else already sorted by segment id (the JAX
+                 kernel's staged operands, padding rows included);
+``seg_ids``      [E] int32 ascending: the sorted (clipped) ids;
+``tile_starts``  [num_tiles + 1] int32: the edges whose ids lie in node
+                 tile t are [tile_starts[t], tile_starts[t + 1]); only
+                 [tile_starts[0], tile_starts[-1]) are summed, so ids at
+                 or past the last boundary (dropped) are never read;
+``order``        [E] int32 or None: the stable argsort of the ids;
 
-and returns [num_tiles * tn, D] f32.  The TPU kernel's one-hot matmul is
-not carried over: one CTA per node tile sums each node's contiguous run of
-rows in edge order, in float32 with no atomics and no TF32.
+and it returns [num_tiles * tn, D] f32.  The work is cut into chunks of
+``CHUNK`` sorted edges, one warp each: a run of one node inside a chunk is
+summed there from 0.0 in edge order; a run that crosses chunk boundaries
+leaves one piece per chunk, and a second launch adds the pieces in chunk
+order.  Float32 throughout, no atomics, no TF32.
 
-``segment_sum_plain`` is its plain PyTorch version on the same operands:
-for k = 0, 1, ... it adds the k-th row of every node that has more than k
-edges, which is the kernel's order of additions, so the two agree bit for
-bit.  A wrapper runs the plain version for tensors on the CPU and launches
-the kernel for tensors on the card; it never falls back from one to the
-other.  Each launch adds one to
-``registry.LAUNCHES["segment_agg.segment_sum"]``.
+``segment_sum_plain`` is its plain PyTorch version on the same operands, in
+the same order of additions, so the two agree bit for bit.  A wrapper runs
+the plain version for tensors on the CPU and launches the kernels for
+tensors on the card; it never falls back from one to the other.  Each call
+that launches adds one to ``registry.LAUNCHES["segment_agg.segment_sum"]``.
 """
 from __future__ import annotations
 
@@ -35,27 +39,56 @@ from repro_torch.kernels import build, registry
 
 SOURCE = "segment_agg/csrc/segment_agg.cu"
 COUNTER = "segment_agg.segment_sum"
+CHUNK = 64    # sorted edges per warp: kChunk of csrc/segment_agg.cu
+
+
+def _runs(brk: torch.Tensor):
+    """Starts and lengths of the stretches that begin where ``brk`` is
+    set (``brk[0]`` is)."""
+    start = torch.nonzero(brk).squeeze(1)
+    end = torch.cat([start[1:], start.new_tensor([brk.shape[0]])])
+    return start, end - start
 
 
 def segment_sum_plain(messages, seg_ids, tile_starts, num_tiles: int, *,
-                      tn: int = 128):
-    """Plain version of ``segment_sum_cuda`` on the staged operands."""
+                      tn: int = 128, order=None):
+    """Plain version of ``segment_sum_cuda`` on the same operands."""
     n_out = int(num_tiles) * tn
-    e_pad, d = messages.shape
+    d = messages.shape[1]
     dev = messages.device
-    pos = torch.arange(e_pad, device=dev)
-    # the edges the tiles own: [tile_starts[0], tile_starts[-1])
-    owned = (pos >= tile_starts[0]) & (pos < tile_starts[-1])
-    node = torch.where(owned, seg_ids.long(), n_out)
-    deg = torch.bincount(node, minlength=n_out + 1)[:n_out]
-    first = torch.searchsorted(seg_ids.long(), torch.arange(n_out, device=dev))
-    first = torch.maximum(first, tile_starts[0].long())
     out = torch.zeros((n_out, d), dtype=torch.float32, device=dev)
-    active = torch.arange(n_out, device=dev)
-    max_deg = int(deg.max()) if n_out else 0
-    for k in range(max_deg):
-        active = active[deg[active] > k]
-        out[active] = out[active] + messages[first[active] + k].float()
+    lo, hi = int(tile_starts[0]), int(tile_starts[-1])
+    if hi <= lo or n_out == 0:
+        return out
+    pos = torch.arange(lo, hi, device=dev)
+    node = seg_ids[lo:hi].long()
+    rows = pos if order is None else order[lo:hi].long()
+    # pieces: the stretches of one node inside one chunk, each summed from
+    # 0.0 in edge order (for k = 0, 1, ...: the k-th row of every piece
+    # longer than k)
+    brk = torch.ones_like(node, dtype=torch.bool)
+    brk[1:] = (node[1:] != node[:-1]) | (pos[1:] % CHUNK == 0)
+    start, length = _runs(brk)
+    piece = torch.zeros((start.shape[0], d), dtype=torch.float32,
+                        device=dev)
+    active = torch.arange(start.shape[0], device=dev)
+    for k in range(int(length.max())):
+        active = active[length[active] > k]
+        piece[active] = piece[active] + \
+            messages[rows[start[active] + k]].float()
+    # each node's pieces added in chunk order
+    pnode = node[start]
+    first = torch.ones_like(pnode, dtype=torch.bool)
+    first[1:] = pnode[1:] != pnode[:-1]
+    nstart, count = _runs(first)
+    acc = piece[nstart]
+    active = torch.arange(nstart.shape[0], device=dev)
+    for j in range(1, int(count.max())):
+        active = active[count[active] > j]
+        acc[active] = acc[active] + piece[nstart[active] + j]
+    nodes = pnode[nstart]
+    keep = (nodes >= 0) & (nodes < n_out)
+    out[nodes[keep]] = acc[keep]
     return out
 
 
@@ -65,9 +98,8 @@ _BOUND = {}
 def _lib():
     if "lib" not in _BOUND:
         lib = build.load(SOURCE)
-        lib.sa_segment_sum.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+        lib.sa_segment_sum.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.sa_segment_sum.restype = ctypes.c_int
         lib.sa_error_string.argtypes = [ctypes.c_int]
         lib.sa_error_string.restype = ctypes.c_char_p
@@ -75,50 +107,58 @@ def _lib():
     return _BOUND["lib"]
 
 
-def _check(messages, seg_ids, tile_starts, num_tiles):
+def _check(messages, seg_ids, tile_starts, num_tiles, order):
     dev = messages.device
+    tensors = (messages, seg_ids, tile_starts) + \
+        (() if order is None else (order,))
     ok = (messages.dtype == torch.float32 and messages.dim() == 2
           and seg_ids.dtype == torch.int32 and seg_ids.dim() == 1
           and seg_ids.shape[0] == messages.shape[0]
           and tile_starts.dtype == torch.int32
           and tile_starts.shape == (num_tiles + 1,)
-          and seg_ids.device == dev and tile_starts.device == dev
-          and all(x.is_contiguous() for x in (messages, seg_ids,
-                                              tile_starts)))
+          and (order is None or (order.dtype == torch.int32
+                                 and order.shape == seg_ids.shape))
+          and all(x.device == dev and x.is_contiguous() for x in tensors))
     if not ok:
         raise ValueError(
             "segment_sum_cuda: needs contiguous float32 messages [E, D], "
-            "int32 seg_ids [E] and int32 tile_starts [num_tiles + 1] on one "
-            f"device; got {messages.dtype}{tuple(messages.shape)}, "
+            "int32 seg_ids [E], int32 tile_starts [num_tiles + 1] and "
+            "optionally int32 order [E] on one device; got "
+            f"{messages.dtype}{tuple(messages.shape)}, "
             f"{seg_ids.dtype}{tuple(seg_ids.shape)}, "
-            f"{tile_starts.dtype}{tuple(tile_starts.shape)}")
+            f"{tile_starts.dtype}{tuple(tile_starts.shape)}, order "
+            f"{None if order is None else (order.dtype, tuple(order.shape))}")
 
 
 def segment_sum_cuda(messages, seg_ids, tile_starts, num_tiles: int, *,
-                     tn: int = 128):
+                     tn: int = 128, order=None):
     """Sorted segment sum over node tiles of ``tn``; returns
     [num_tiles * tn, D] f32.  CPU tensors run ``segment_sum_plain``; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernels."""
     dev = messages.device.type
     if dev == "cpu":
         return segment_sum_plain(messages, seg_ids, tile_starts, num_tiles,
-                                 tn=tn)
+                                 tn=tn, order=order)
     if dev != "cuda":
         raise ValueError(f"segment_agg: unsupported device {dev}")
     num_tiles = int(num_tiles)
-    _check(messages, seg_ids, tile_starts, num_tiles)
+    _check(messages, seg_ids, tile_starts, num_tiles, order)
     d = messages.shape[1]
     out = torch.empty((num_tiles * tn, d), dtype=torch.float32,
                       device=messages.device)
     if num_tiles == 0 or d == 0:
         return out
+    chunks = max(1, -(-seg_ids.shape[0] // CHUNK))
+    partial = torch.empty((chunks, 2, d), dtype=torch.float32,
+                          device=messages.device)
     vec = int(d % 4 == 0 and messages.data_ptr() % 16 == 0)
     lib = _lib()
     with torch.cuda.device(messages.device):
         stream = torch.cuda.current_stream(messages.device).cuda_stream
-        err = lib.sa_segment_sum(messages.data_ptr(), seg_ids.data_ptr(),
-                                 tile_starts.data_ptr(), out.data_ptr(),
-                                 num_tiles, tn, d, vec, stream)
+        err = lib.sa_segment_sum(
+            messages.data_ptr(), 0 if order is None else order.data_ptr(),
+            seg_ids.data_ptr(), tile_starts.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), num_tiles, tn, d, chunks, vec, stream)
     if err != 0:
         raise RuntimeError(f"segment_sum_cuda: CUDA launch failed with error "
                            f"{err} ({lib.sa_error_string(err).decode()})")

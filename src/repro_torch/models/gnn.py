@@ -4,8 +4,9 @@ encoder-processor-decoder, on the card.
 The port of ``repro/models/gnn.py``'s forward pass.  All message passing is
 edge-list based: gather source-node features per edge, transform, then sum
 (or max) into destination nodes.  ``cfg.use_kernel`` routes the
-destination sum through the ``segment_agg`` CUDA kernel (sorted edges, one
-CTA per node tile) instead of ``index_add_``.
+destination sum through the ``segment_agg`` CUDA kernels (edges sorted by
+destination, read in place through the sort order, one warp per chunk of
+64 edges) instead of ``index_add_``.
 
 Graph dict convention (``data/graphs.py`` builders):
     node_feat [N, F]  edge_src [E]  edge_dst [E]  (int32)
