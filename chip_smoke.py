@@ -51,7 +51,20 @@ caught and passed over):
    route within a max relative error of 1e-3 (GraphCast) and 1e-4 (GAT) of
    the ``index_add_`` route, with TF32 off; the aten operators run inside
    the 16 ``ops.segment_sum`` calls of one GraphCast forward hold no copy
-   of the messages (no ``cat``, ``index``, ``gather``, ``index_select``).
+   of the messages (no ``cat``, ``index``, ``gather``, ``index_select``);
+9. the read-while-ingest service through ``repro_torch.launch.query`` at
+   phase 4's geometry and stream (``--rounds 8 --queries 256 --top-k 8
+   --use-kernel``): an ingest-only baseline, then the same stream with a
+   256-query point-lookup batch and a top-k batch after every round.  Both
+   runs end at counter 4,194,304 with overflow 0 and equal states; the
+   query batches launched ``merge_multi`` 32 times each (the canon-mode
+   layer-0 canonicalization); on the final live fleet, point lookups
+   (canon and scan), ``extract_rows`` of the 8 heavy-hitter rows at
+   2**22 columns (default width, and width 64 against the entries the
+   window drops), ``range_total``, the degree vectors, ``spmv``,
+   ``spmv_t``, ``ata_correlation``, ``row_occupancy`` and ``top_k_rows``
+   equal, exactly, the same queries on each instance's flushed state or
+   the reductions of its ``query_all``.
 
 Phase 3 also holds the ``embedding_bag`` and ``segment_agg`` kernels
 against their plain versions (and oracles) on their registry jobs, then
@@ -897,6 +910,216 @@ def states_equal(a, b, what: str) -> None:
             raise AssertionError(f"{what}: {k} differs")
 
 
+def service_args(**kw):
+    """Phase 9's command line: the ``d4m_stream`` geometry at phase 4's
+    stream length with the config's own query knobs."""
+    from repro_torch.launch import query
+    args = query.parser().parse_args([])
+    knobs = dict(instances=32, blocks=128, block_size=1024,
+                 cuts="2048,16384,131072", scale=22, rounds=8, queries=256,
+                 queries_per_round=1, top_k=8, use_kernel=True, seed=0,
+                 device="cuda")
+    for k, v in {**knobs, **kw}.items():
+        setattr(args, k, v)
+    return args
+
+
+def _exact(got, want, what: str) -> None:
+    import torch
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{what}: live answer != flushed state's")
+
+
+def _dropped_by_window(torch, h, rows, n_cols: int, width: int):
+    """The extract_rows oracle for a window of ``width``: per query row,
+    the in-view entries of every sorted layer past the row's first
+    ``width`` (layer 0 is scanned whole at this batch size), as a dense
+    [Q, n_cols] of their values and their count."""
+    dense = torch.zeros((rows.shape[0], n_cols), dtype=h.layers[0].dtype,
+                        device=rows.device)
+    count = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    for layer in h.layers[1:]:
+        live = torch.arange(layer.capacity, device=rows.device) < layer.nnz
+        view = live & (layer.lo >= 0) & (layer.lo < n_cols)
+        for q in range(rows.shape[0]):
+            idx = torch.nonzero(view & (layer.hi == rows[q]))[:, 0][width:]
+            dense[q].index_put_((layer.lo[idx].long(),), layer.val[idx],
+                                accumulate=True)
+            count[q] += idx.shape[0]
+    return dense, count
+
+
+def service_phase(torch, args, width: int = 64) -> dict:
+    """Phase 9: the read-while-ingest service through ``launch/query.run``
+    (an ingest-only baseline, then ingest rounds interleaved with point
+    lookup and top-k batches), then every query surface on the final live
+    fleet held exactly against each instance's flushed state and the
+    reductions of its ``query_all``; ``extract_rows`` also at a window of
+    ``width`` entries.  Returns the numbers it printed."""
+    import math
+    from repro_torch.core import assoc, hier, stream
+    from repro_torch.launch import query
+    from repro_torch.query import analytics, engine
+
+    dev = torch.device(args.device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    stats, base, states = query.run_with_states(args)
+    n_inst, n_keys, k = args.instances, 1 << args.scale, args.top_k
+    uk, lazy = args.use_kernel, not args.no_lazy_l0
+    want_updates = n_inst * args.blocks * args.block_size
+    for what, s in (("baseline", base), ("with queries", states)):
+        counter, ovf = hier.exact_update_count(s), int(torch.sum(s.overflow))
+        if counter != want_updates or ovf != 0:
+            raise AssertionError(f"service {what}: counter {counter} != "
+                                 f"{want_updates} or overflow {ovf} != 0")
+    states_equal(base, states, "service with queries vs without")
+
+    # the query batches' merge_multi launches: one per instance and canon
+    # batch (the warm-up batch and one per timed round)
+    c0 = states.capacities[0]
+    canon = args.l0_mode == "canon" or (
+        args.l0_mode == "auto"
+        and args.queries > engine._L0_SCAN_FACTOR * math.log2(c0 + 1))
+    batches = 1 + (args.rounds - 1) * args.queries_per_round
+    by_queries = {key: stats["launches"][key]
+                  - stats["ingest_only_launches"][key]
+                  for key in stats["launches"]}
+    want = n_inst * batches if on_card and canon and uk else 0
+    if by_queries["hier_merge.merge_multi"] != want \
+            or by_queries["assoc.sort_route"] != 0:
+        raise AssertionError(f"query batches launched {by_queries}, want "
+                             f"{want} merge_multi")
+
+    # the final live fleet against each instance's flushed state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    live = [stream.instance(states, i) for i in range(n_inst)]
+    flushed = [hier.flush(h, lazy_l0=lazy, use_kernel=uk) for h in live]
+    merged = [hier.query_all(h, lazy_l0=lazy, use_kernel=uk) for h in live]
+
+    def keys(h, f):
+        rand = torch.randint(0, n_keys, (64,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return torch.cat([getattr(h.layers[2], f)[:96],
+                          getattr(h.layers[1], f)[:64],
+                          getattr(h.layers[0], f)[:32], rand])
+
+    qr = torch.stack([keys(h, "hi") for h in live])
+    qc = torch.stack([keys(h, "lo") for h in live])
+    for mode, q in (("canon", qr.shape[1]), ("scan", 32)):
+        got = engine.point_lookup(states, qr[:, :q], qc[:, :q],
+                                  use_kernel=uk, l0_mode=mode)
+        for i, f in enumerate(flushed):
+            _exact(got[i], engine.point_lookup(f, qr[i, :q], qc[i, :q]),
+                   f"instance {i} {mode} point lookups")
+
+    totals, ids = analytics.top_k_rows(states, n_keys, k)
+    present = torch.zeros((n_inst, n_keys), dtype=torch.bool, device=dev)
+    for i, m in enumerate(merged):
+        present[i, m.hi[:int(m.nnz)].long()] = True
+        deg = assoc.reduce_rows(m, n_keys)
+        score = torch.where(present[i], deg, -float("inf"))
+        order = torch.sort(score, descending=True, stable=True).indices[:k]
+        _exact(ids[i], order.to(torch.int32), f"instance {i} top_k ids")
+        _exact(totals[i], score[order], f"instance {i} top_k totals")
+
+    worst_trunc = 0
+    for i, (h, f) in enumerate(zip(live, flushed)):
+        dense, trunc = engine.extract_rows(h, ids[i], n_keys, use_kernel=uk)
+        want_dense, want_trunc = engine.extract_rows(f, ids[i], n_keys)
+        _exact(dense, want_dense, f"instance {i} extract_rows")
+        if int(trunc.sum()) or int(want_trunc.sum()):
+            raise AssertionError(f"instance {i}: the default width dropped "
+                                 f"entries")
+        narrow, trunc = engine.extract_rows(h, ids[i], n_keys, width=width,
+                                            use_kernel=uk, l0_mode="scan")
+        dropped, count = _dropped_by_window(torch, h, ids[i], n_keys, width)
+        _exact(trunc, count, f"instance {i} extract_rows width {width} "
+               f"truncated")
+        _exact(narrow + dropped, dense,
+               f"instance {i} extract_rows width {width} + dropped")
+        worst_trunc = max(worst_trunc, int(trunc.max()))
+        del dense, want_dense, narrow, dropped
+
+    lo = torch.tensor([0, 0, 1 << 10, 0], dtype=torch.int32, device=dev)
+    hi = torch.tensor([n_keys, 1 << 10, 1 << 16, 0], dtype=torch.int32,
+                      device=dev)
+    lo = torch.stack([lo] * n_inst)
+    hi = torch.stack([hi] * n_inst)
+    lo[:, 3], hi[:, 3] = ids[:, 0], ids[:, 0] + 1
+    got = engine.range_total(states, lo, hi, use_kernel=uk)
+    for i, f in enumerate(flushed):
+        _exact(got[i], engine.range_total(f, lo[i], hi[i]),
+               f"instance {i} range_total")
+        if int(got[i, 0]) != int(states.n_updates[i]):
+            raise AssertionError(f"instance {i}: total {float(got[i, 0])} != "
+                                 f"its {int(states.n_updates[i])} updates")
+
+    x_cols = torch.zeros(n_keys, device=dev)
+    x_cols[torch.randint(0, n_keys, (4096,), generator=gen, device=dev)] = 1
+    x_rows = torch.zeros(n_keys, device=dev)
+    x_rows[torch.randint(0, n_keys, (4096,), generator=gen, device=dev)] = 1
+    checks = (
+        ("out_degrees", analytics.out_degrees(states, n_keys),
+         lambda m: assoc.reduce_rows(m, n_keys)),
+        ("in_degrees", analytics.in_degrees(states, n_keys),
+         lambda m: assoc.reduce_cols(m, n_keys)),
+        ("spmv", analytics.spmv(states, x_cols, n_keys),
+         lambda m: assoc.spmv(m, x_cols, n_keys)),
+        ("spmv_t", analytics.spmv_t(states, x_rows, n_keys),
+         lambda m: assoc.spmv_t(m, x_rows, n_keys)),
+        ("ata_correlation",
+         analytics.ata_correlation(states, x_cols, n_keys, n_keys),
+         lambda m: assoc.spmv_t(m, assoc.spmv(m, x_cols, n_keys), n_keys)))
+    for name, got, oracle in checks:
+        for i, m in enumerate(merged):
+            _exact(got[i], oracle(m), f"instance {i} {name}")
+        del got
+    occ = analytics.row_occupancy(states, n_keys)
+    slots = sum(l.nnz.long() for l in states.layers)
+    if not torch.equal(occ > 0, present) or \
+            not torch.equal(occ.sum(-1), slots):
+        raise AssertionError("row_occupancy != the live slots per row")
+
+    profiles = {}
+    if on_card:
+        # one query batch and one analytics batch under torch.profiler
+        from repro_torch.query import service
+        query_fn = service.make_point_query_fn(use_kernel=uk,
+                                               l0_mode=args.l0_mode)
+        top_fn = service.make_analytics_fn(n_keys, k)
+        q_rows, q_cols = qr[0], qc[0]
+        for name, fn in (("query_batch", lambda: query_fn(states, q_rows,
+                                                           q_cols)),
+                         ("analytics_batch", lambda: top_fn(states))):
+            profiles[name] = device_profile(torch, fn)
+            print(f"profile {name}: " + json.dumps(profiles[name]),
+                  flush=True)
+
+    timed = args.rounds - 1
+    res = dict(
+        updates_per_s=stats["updates_per_s"],
+        ingest_only_updates_per_s=stats["ingest_only_updates_per_s"],
+        ingest_interference=stats["ingest_interference"],
+        queries_per_s=stats["queries_per_s"],
+        latency_p50_ms=stats["latency_p50_s"] * 1e3,
+        latency_p95_ms=stats["latency_p95_s"] * 1e3,
+        latency_p99_ms=stats["latency_p99_s"] * 1e3,
+        latency_max_ms=stats["latency_max_s"] * 1e3,
+        analytics_ms_per_batch=stats["analytics_wall_s"] / timed * 1e3,
+        query_batches=batches, stalled_rounds=stats["stalled_rounds"],
+        launches=stats["launches"],
+        ingest_only_launches=stats["ingest_only_launches"],
+        query_launches=by_queries, narrow_width=width,
+        narrow_max_truncated=worst_trunc, profiles=profiles,
+        peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                  if on_card else None))
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1086,6 +1309,21 @@ def main() -> int:
           f"gat-cora {gnn_res['gat_ms']:.3f} ms per forward; segment_sum "
           f"launches {gnn_res['launches']}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    phase("9 read-while-ingest service: d4m_stream geometry, 32 instances, "
+          "point lookups and top-k against the live fleet")
+    torch.cuda.empty_cache()
+    svc = service_phase(torch, service_args())
+    print(f"service: updates_per_s {svc['updates_per_s']:.1f} with queries, "
+          f"{svc['ingest_only_updates_per_s']:.1f} without (interference "
+          f"{svc['ingest_interference']:+.4f}); queries_per_s "
+          f"{svc['queries_per_s']:.1f}; batch latency p50/p95/p99/max "
+          f"{svc['latency_p50_ms']:.3f}/{svc['latency_p95_ms']:.3f}/"
+          f"{svc['latency_p99_ms']:.3f}/{svc['latency_max_ms']:.3f} ms; "
+          f"analytics {svc['analytics_ms_per_batch']:.3f} ms per batch; "
+          f"merge_multi launched {svc['query_launches']['hier_merge.merge_multi']}"
+          f" times by {svc['query_batches']} query batches; peak device "
+          f"memory {svc['peak_gib']:.3f} GiB; {card}", flush=True)
 
     kernels = []
     for name, source, replaces, launches in (

@@ -1,6 +1,6 @@
 """Config dataclasses and input-shape tables of the families the port runs.
 
-A copy of the GNN and RecSys parts of ``repro/configs/base.py``: the same
+A copy of the GNN, RecSys and D4M parts of ``repro/configs/base.py``: the same
 field names, defaults and derived properties, so ``dataclasses.asdict`` of
 a port config equals the reference's.  Pure data, no torch.
 """
@@ -94,3 +94,39 @@ RECSYS_SHAPES = {
     "retrieval_cand": dict(kind="retrieval", batch=1,
                            n_candidates=1_000_000),
 }
+
+
+# ------------------------------------------------------------------ D4M -----
+
+
+@dataclasses.dataclass(frozen=True)
+class D4MConfig:
+    """The paper's own workload: hierarchical assoc-array streaming ingest."""
+    name: str
+    cuts: Tuple[int, ...] = (2048, 16384, 131072)
+    block_size: int = 1024
+    blocks_per_step: int = 8            # stream blocks per device step
+    instances_per_device: int = 4       # 34k/1.1k node analogue
+    rmat_scale: int = 22                # 2^22 vertices
+    dtype: str = "float32"
+    use_kernel: bool = False
+    lazy_l0: bool = False               # append-buffer layer 0
+    fused: bool = True                  # single-sort fused spill cascade
+    chunk: int = 1                      # stream blocks pre-combined per update
+    # instance-batched execution strategy (stream.ingest_instances):
+    # "grouped" (per depth cohort), "bucketed", "branchfree" or "switch"
+    batch_mode: str = "grouped"
+    # --- read path (query: engine + service) ---
+    query_batch: int = 256              # Q-vector width per engine call
+    # layer-0 strategy for queries: "auto" picks raw scan vs one
+    # canonicalization of just the layer-0 buffer by Q (engine.py)
+    query_l0_mode: str = "auto"
+    queries_per_round: int = 1          # service loop: query batches/round
+
+    family: str = dataclasses.field(default="d4m", init=False)
+
+    def effective_chunk(self, blocks: int) -> int:
+        """chunk>1 needs the fused planner (layered layer 0 has no headroom
+        for a wider block) and a stream length it divides — else 1."""
+        c = max(self.chunk, 1)
+        return c if self.fused and blocks % c == 0 else 1

@@ -18,6 +18,8 @@ ARCHS = {
     "gatedgcn":             ("gnn", "repro_torch.configs.gatedgcn"),
     # RecSys (1)
     "dcn-v2":               ("recsys", "repro_torch.configs.dcn_v2"),
+    # the paper's own workload
+    "d4m-stream":           ("d4m", "repro_torch.configs.d4m_stream"),
 }
 
 # archs of the reference whose family the port does not run yet
@@ -27,7 +29,6 @@ NOT_PORTED = {
     "mistral-nemo-12b": "lm",
     "phi3-mini-3.8b": "lm",
     "smollm-360m": "lm",
-    "d4m-stream": "d4m",
 }
 
 

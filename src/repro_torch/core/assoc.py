@@ -13,7 +13,11 @@ SENTINEL key and the semiring zero.  This invariant ("canonical form") lets
 merges concatenate raw buffers without masking.
 
 Functions here act on one segment (1-D tensors) and return new tensors;
-instance batching lives in ``core/stream.py``.
+instance batching of the update path lives in ``core/stream.py``.  The
+reductions (``reduce_rows``, ``reduce_cols``, ``spmv``, ``spmv_t``,
+``to_dense``, ``total``) also take an instance batch (``[I, C]`` fields,
+``[I]`` nnz) and return one result per instance: the port's counterpart
+of ``jax.vmap`` over them.
 
 CONTRACTS
 ---------
@@ -48,6 +52,7 @@ int64 key is the transient packed sort key inside ``_canonicalize``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -98,12 +103,17 @@ def empty(capacity: int, dtype=torch.float32,
     )
 
 
+def pack_key(hi: Tensor, lo: Tensor) -> Tensor:
+    """One int64 per (hi, lo) pair, ordered as the signed lexicographic
+    pair.  lo is offset by 2**31 so a negative lo sorts below a
+    non-negative one (a plain ``hi << 32 | lo`` sign-extends lo into hi's
+    bits and misorders it)."""
+    return (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + 2**31)
+
+
 def _sorted_by_key(hi: Tensor, lo: Tensor, val: Tensor):
-    """Co-sort by signed lexicographic (hi, lo).  The packed key offsets lo
-    by 2**31 so a negative lo sorts below a non-negative one (a plain
-    ``hi << 32 | lo`` sign-extends lo into hi's bits and misorders it)."""
-    key = (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + 2**31)
-    _, order = torch.sort(key, stable=True)
+    """Co-sort by signed lexicographic (hi, lo) through ``pack_key``."""
+    _, order = torch.sort(pack_key(hi, lo), stable=True)
     return hi[order], lo[order], val[order]
 
 
@@ -316,3 +326,118 @@ def _live_slots(seg: AssocSegment, sorted: bool) -> Tensor:
         valid &= torch.arange(seg.capacity, device=seg.device) \
             < seg.nnz.unsqueeze(-1)
     return valid
+
+
+def extract_row(seg: AssocSegment, row) -> Tuple[Tensor, Tensor, Tensor]:
+    """All (col, val) pairs of one row plus a validity mask (Fig 1's
+    nearest-neighbor query)."""
+    return seg.lo, seg.val, seg.hi == row
+
+
+def _segment_reduce(sr: Semiring, vals: Tensor, ids: Tensor, n: int
+                    ) -> Tensor:
+    """``sr.add`` of ``vals`` per id in ``[0, n)`` along the last axis,
+    separately for every leading index: ``[..., C] -> [..., n]``.  Ids
+    outside ``[0, n)`` are dropped, as ``jax.ops.segment_*`` drops them.
+    A batch is one scatter: instance i's ids are offset by ``i * (n + 1)``
+    into a flat output whose spare slot per instance takes the dropped
+    ids."""
+    lead = ids.shape[:-1]
+    if not lead:
+        return sr.segment_add(vals, ids, n)
+    b = math.prod(lead)
+    ids = ids.reshape(b, -1).long()
+    ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    ids = ids + torch.arange(b, device=ids.device).unsqueeze(-1) * (n + 1)
+    out = sr.segment_add(vals.reshape(-1), ids.reshape(-1), b * (n + 1))
+    return out.reshape(lead + (n + 1,))[..., :n]
+
+
+def _gather_x(x: Tensor, idx: Tensor) -> Tensor:
+    """``x`` at ``idx`` clipped into ``[0, len(x))``; a batched ``x``
+    ([..., N], the leading axes of ``idx``) is read per instance."""
+    idx = torch.clamp(idx.long(), 0, x.shape[-1] - 1)
+    return x[idx] if x.dim() == 1 else torch.gather(x, -1, idx)
+
+
+def reduce_rows(seg: AssocSegment, num_rows: int,
+                sr: Semiring = sr_mod.PLUS_TIMES,
+                sorted: bool = True) -> Tensor:
+    """Dense per-row reduction (e.g. out-degrees under plus.times).
+
+    ``sorted=False`` lifts the canonical-form assumption so the same
+    reduction runs over a RAW buffer (the lazy layer-0 append buffer, with
+    unsorted and duplicated keys), gating live slots by ``nnz`` instead of
+    trusting the sentinel tail.  Keys outside ``[0, num_rows)`` are
+    dropped.
+    """
+    ids = torch.where(_live_slots(seg, sorted), seg.hi, num_rows)
+    return _segment_reduce(sr, seg.val, ids, num_rows)
+
+
+def reduce_cols(seg: AssocSegment, num_cols: int,
+                sr: Semiring = sr_mod.PLUS_TIMES,
+                sorted: bool = True) -> Tensor:
+    """Dense per-column reduction (in-degrees under plus.times);
+    ``sorted=False`` adds the raw-buffer live-slot gate by ``nnz``."""
+    ids = torch.where(_live_slots(seg, sorted), seg.lo, num_cols)
+    return _segment_reduce(sr, seg.val, ids, num_cols)
+
+
+def spmv(seg: AssocSegment, x: Tensor, num_rows: int,
+         sr: Semiring = sr_mod.PLUS_TIMES, sorted: bool = True) -> Tensor:
+    """y = A (.) x under the semiring: y[r] = add_c mul(A[r,c], x[c]).
+
+    The gather into ``x`` is clipped into range, as in the reference.
+    ``sorted=False`` admits a RAW buffer, live slots gated by ``nnz``.
+    """
+    zero = sr_mod.integer_zero(sr, seg.dtype)
+    valid = _live_slots(seg, sorted)
+    gathered = _gather_x(x, seg.lo)
+    prod = torch.where(valid, sr.mul(seg.val, gathered.to(seg.dtype)), zero)
+    ids = torch.where(valid, seg.hi, num_rows)
+    return _segment_reduce(sr, prod, ids, num_rows)
+
+
+def spmv_t(seg: AssocSegment, x: Tensor, num_cols: int,
+           sr: Semiring = sr_mod.PLUS_TIMES, sorted: bool = True) -> Tensor:
+    """y = A' (.) x under the semiring: y[c] = add_r mul(A[r,c], x[r]) —
+    with ``spmv`` the A'(Ax) correlation step, never forming A'A.
+    ``sorted=False`` marks a RAW buffer and gates live slots by ``nnz``."""
+    zero = sr_mod.integer_zero(sr, seg.dtype)
+    valid = _live_slots(seg, sorted)
+    gathered = _gather_x(x, seg.hi)
+    prod = torch.where(valid, sr.mul(seg.val, gathered.to(seg.dtype)), zero)
+    ids = torch.where(valid, seg.lo, num_cols)
+    return _segment_reduce(sr, prod, ids, num_cols)
+
+
+def to_dense(seg: AssocSegment, num_rows: int, num_cols: int,
+             sr: Semiring = sr_mod.PLUS_TIMES, sorted: bool = True) -> Tensor:
+    """Materialize the segment densely ([..., num_rows, num_cols]).
+
+    Indexing follows the reference's scatter: a key in ``[-n, 0)`` wraps
+    to ``key + n`` and a key outside ``[-n, n)`` is dropped.
+    ``sorted=False`` marks a RAW buffer and gates live slots by ``nnz``."""
+    r, c = seg.hi.long(), seg.lo.long()
+    r = torch.where(r < 0, r + num_rows, r)
+    c = torch.where(c < 0, c + num_cols, c)
+    valid = _live_slots(seg, sorted) & (r >= 0) & (r < num_rows) \
+        & (c >= 0) & (c < num_cols)
+    flat = _segment_reduce(sr, seg.val, torch.where(valid, r * num_cols + c,
+                                                    -1),
+                           num_rows * num_cols)
+    return flat.reshape(seg.hi.shape[:-1] + (num_rows, num_cols))
+
+
+def total(seg: AssocSegment, sr: Semiring = sr_mod.PLUS_TIMES,
+          sorted: bool = True) -> Tensor:
+    """Reduce every live value with ``sr.add`` (per instance for a batch).
+    ``sorted=False`` marks a RAW buffer and gates live slots by ``nnz``."""
+    zero = sr_mod.integer_zero(sr, seg.dtype)
+    vals = torch.where(_live_slots(seg, sorted), seg.val, zero)
+    kind = sr_mod.reduce_kind(sr)
+    if kind == "sum":
+        return torch.sum(vals, dim=-1, dtype=seg.dtype)
+    return torch.amax(vals, dim=-1) if kind == "max" \
+        else torch.amin(vals, dim=-1)

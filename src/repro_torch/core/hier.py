@@ -123,6 +123,38 @@ def exact_update_count(h: HierAssoc) -> int:
     return int(h.n_updates.sum())
 
 
+def metrics_snapshot(h: HierAssoc) -> dict:
+    """Fleet observability sample: the whole ``[I, ...]`` (or single)
+    state reduced on the device to a handful of tensors — per-layer nnz
+    totals (int32) and mean occupancy, cumulative spills per layer, a
+    depth histogram (instances per deepest non-empty layer; bin 0 =
+    empty), overflow, and the exact update total as the reference's word
+    pair: ``updates_lo`` (the low 32 bits, as int64) and ``updates_hi``
+    (int32).  The host transfer is the caller's
+    (``obs.metrics.fleet_sample``)."""
+    nnz = [l.nnz for l in h.layers]
+    nnz_total = torch.stack([torch.sum(n).to(torch.int32) for n in nnz])
+    occupancy = torch.stack([torch.mean(n.to(torch.float32)) / c
+                             for n, c in zip(nnz, h.capacities)])
+    depth = torch.zeros_like(nnz[0])
+    for i, n in enumerate(nnz):
+        depth = torch.where(n > 0, i + 1, depth)
+    depth_hist = torch.bincount(depth.reshape(-1).long(),
+                                minlength=h.num_layers + 1).to(torch.int32)
+    spills = torch.sum(h.spills.reshape(-1, len(h.cuts)), 0,
+                       dtype=torch.int32)
+    total = torch.sum(h.n_updates)
+    return dict(
+        nnz=nnz_total,
+        occupancy=occupancy,
+        depth_hist=depth_hist,
+        spills=spills,
+        overflow=torch.sum(h.overflow).to(torch.int32),
+        updates_lo=total & 0xFFFFFFFF,
+        updates_hi=(total >> 32).to(torch.int32),
+    )
+
+
 # --------------------------------------------------- numpy state converter ---
 
 def state_to_numpy(h: HierAssoc) -> dict:

@@ -11,7 +11,9 @@ Only ``add``/``zero`` participate in the streaming-update hot path; ``mul``/
 ``segment_add`` reduces into an output filled with ``integer_zero`` through
 ``scatter_reduce(..., include_self=True)``, so an empty segment holds the
 semiring zero (-inf / +inf, or the integer min / max) exactly as
-``jax.ops.segment_max`` / ``segment_min`` leave it.
+``jax.ops.segment_max`` / ``segment_min`` leave it.  Ids outside
+``[0, num_segments)`` are dropped, as ``jax.ops.segment_*`` drops them:
+they are routed to a spare slot that is sliced off.
 """
 from __future__ import annotations
 
@@ -43,11 +45,15 @@ class Semiring:
     def segment_add(self, vals: Tensor, segment_ids: Tensor,
                     num_segments: int) -> Tensor:
         """Per-segment ``add`` reduction of a 1-D ``vals``; empty segments
-        hold the semiring zero."""
-        out = self.zeros((num_segments,), vals.dtype, vals.device)
-        return out.scatter_reduce(0, segment_ids.long(), vals,
-                                  _SCATTER_REDUCE[reduce_kind(self)],
-                                  include_self=True)
+        hold the semiring zero and ids outside ``[0, num_segments)`` are
+        dropped (routed to a spare slot past the end)."""
+        ids = segment_ids.long()
+        ids = torch.where((ids >= 0) & (ids < num_segments), ids,
+                          num_segments)
+        out = self.zeros((num_segments + 1,), vals.dtype, vals.device)
+        out.scatter_reduce_(0, ids, vals, _SCATTER_REDUCE[reduce_kind(self)],
+                            include_self=True)
+        return out[:num_segments]
 
 
 PLUS_TIMES = Semiring(name="plus.times", add=torch.add, zero=0.0,

@@ -273,7 +273,8 @@ def ingest_instances(states: HierAssoc, rows, cols, vals,
                      lazy_l0: bool = False,
                      fused: bool = True,
                      chunk: int = 1,
-                     batch_mode: str = "grouped"):
+                     batch_mode: str = "grouped",
+                     with_telemetry: bool = True):
     """Instance-batched ingest: ``states`` is an instance-batched
     ``HierAssoc`` and the stream tensors are [I, T, B].
 
@@ -282,6 +283,9 @@ def ingest_instances(states: HierAssoc, rows, cols, vals,
     ``"branchfree"`` or ``"switch"`` — see the module docstring.  All modes
     return identical states and per-instance telemetry ([I, T, ...],
     per-input-block units under ``chunk``).  Returns a new state.
+    ``with_telemetry=False`` returns ``None`` for the telemetry, and the
+    grouped and bucketed modes then take no per-step snapshot (the
+    service's hot path).
     """
     sig = stages.signature_for_state(
         states, sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0, fused=fused,
@@ -297,7 +301,8 @@ def ingest_instances(states: HierAssoc, rows, cols, vals,
                        use_kernel=use_kernel, lazy_l0=lazy_l0, fused=fused,
                        chunk=chunk, batch_mode=mode) for i in range(I)]
         return (stack_states([o[0] for o in outs]),
-                _stack_telemetry([o[1] for o in outs], 0))
+                _stack_telemetry([o[1] for o in outs], 0)
+                if with_telemetry else None)
 
     if chunk > 1:
         rows, cols, vals = _chunk_stream(
@@ -308,6 +313,9 @@ def ingest_instances(states: HierAssoc, rows, cols, vals,
     for t in range(rows.shape[1]):
         s = _update_instances_(s, rows[:, t], cols[:, t], vals[:, t], sr,
                                use_kernel, lazy_l0, batch_mode, None)
-        snaps.append(_snapshot(s))
+        if with_telemetry:
+            snaps.append(_snapshot(s))
+    if not with_telemetry:
+        return s, None
     return s, _normalize_chunked_telemetry(_stack_telemetry(snaps, 1), chunk,
                                            time_axis=1)

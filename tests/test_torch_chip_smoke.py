@@ -1,5 +1,6 @@
-"""``chip_smoke.py``'s model phases (7: DCN-v2 serving, 8: GNN inference)
-and phase 3's segment_sum checks rehearsed on the CPU at small sizes: the
+"""``chip_smoke.py``'s model phases (7: DCN-v2 serving, 8: GNN inference),
+phase 9 (the read-while-ingest service) and phase 3's segment_sum checks
+rehearsed on the CPU at small sizes: the
 same calls and checks as on the card, with the kernel wrappers running
 their plain versions (so no launch is counted).  The DCN-v2 kernel route
 equals the reference route exactly; the GNN kernel route adds a run that
@@ -77,3 +78,19 @@ def test_profile_segment_needs_a_card():
     from repro_torch.launch import profile_segment
     want = 0 if torch.cuda.is_available() else 2
     assert profile_segment.main() == want
+
+
+def test_service_phase_on_cpu():
+    """Phase 9 at smoke size: the service through ``launch/query.run``
+    with and without queries (equal states, exact counter), then every
+    query surface on the live fleet exactly equal to the flushed states'
+    answers; the plain versions launch nothing."""
+    args = chip_smoke.service_args(instances=3, blocks=16, block_size=32,
+                                   cuts="64,256,1024", scale=10, rounds=4,
+                                   queries=64, top_k=4, device="cpu")
+    res = chip_smoke.service_phase(torch, args, width=2)
+    assert res["query_batches"] == 4
+    assert res["query_launches"]["hier_merge.merge_multi"] == 0
+    assert res["updates_per_s"] > 0 and res["queries_per_s"] > 0
+    assert res["narrow_max_truncated"] > 0
+    assert res["latency_p50_ms"] <= res["latency_max_ms"]

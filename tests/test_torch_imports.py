@@ -80,6 +80,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         hier.state_from_numpy(d, device="cpu").spills.numpy(), d["spills"])
 
 
+def test_query_service_entry_points_raise_without_cuda(monkeypatch):
+    """``launch/query.py`` defaults to cuda and raises without it, like
+    ``launch/ingest.py``; the service, engine and analytics modules (and
+    obs) import without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch import obs  # noqa: F401
+    from repro_torch.launch import query
+    from repro_torch.query import analytics, engine, service  # noqa: F401
+    args = query.parser().parse_args(["--instances", "2", "--blocks", "4",
+                                      "--rounds", "2"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        query.run(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        query.run_with_states(args)
+    for name in ("query/analytics.py", "query/service.py", "launch/query.py",
+                 "obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+                 "obs/slo.py"):
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+
+
 def test_model_and_data_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.configs import registry

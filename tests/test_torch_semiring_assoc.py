@@ -5,6 +5,8 @@ sort key's lexicographic-order hazard), overflow at ``out_capacity < n``
 and empty-segment zeros.  Keys and nnz exact; values exact on integer
 inputs, within rtol 1e-4 on float ones (float sums taken in another order).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -148,3 +150,91 @@ def test_clear_and_empty():
     want = jassoc.empty(8, jnp.int32, jsr.MAX_PLUS)
     tp.assert_segment_equal(seg, want)
     tp.assert_segment_equal(tassoc.clear(seg, tsr.MAX_PLUS), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("name", SRS)
+def test_segment_add_drops_out_of_range_ids(name, dtype):
+    """Ids below 0 and at or above ``num_segments`` are dropped, as
+    ``jax.ops.segment_sum/max/min`` drop them (they used to raise, or trip
+    a device assert on the card)."""
+    t, j = tsr.get(name), jsr.get(name)
+    rng = np.random.default_rng(6)
+    vals = (rng.integers(-50, 50, 200) if dtype == np.int32
+            else rng.normal(size=200)).astype(dtype)
+    ids = rng.integers(-8, 20, 200).astype(np.int32)
+    ids[:4] = [-2**31, 2**31 - 1, 12, -1]
+    for n in (12, 1, 25):
+        got = t.segment_add(torch.from_numpy(vals), torch.from_numpy(ids), n)
+        want = j.segment_add(jnp.asarray(vals), jnp.asarray(ids), n)
+        assert got.shape == (n,)
+        tp.assert_vals(got.numpy(), np.asarray(want), exact=False,
+                       what=f"n={n}")
+
+
+def _segments(name, dtype):
+    """(canonical, raw) segments of both packages: keys in [-3, 12) rows
+    and signed cols (some far out of range); the raw one unsorted with
+    duplicates and a dirty (non-sentinel) tail past nnz."""
+    t, j = tsr.get(name), jsr.get(name)
+    rows, cols, vals, mask = _block(7, 64, 12, dtype)
+    (jr, jc, jv, jm), (tr, tc, tv, tm) = tp.both(rows, cols, vals, mask)
+    canon = (tassoc.from_coo(tr, tc, tv, 80, t, mask=tm)[0],
+             jassoc.from_coo(jr, jc, jv, 80, j, mask=jm)[0])
+    nnz = np.int32(50)
+    raw = (tassoc.AssocSegment(tr, tc, tv, torch.tensor(nnz)),
+           jassoc.AssocSegment(jr, jc, jv, jnp.asarray(nnz)))
+    return canon, raw
+
+
+def _reductions(mod, seg, x_rows, x_cols, sr, srt):
+    """Every reduction of ``mod`` (either package's assoc) with views of
+    8 rows and 10 cols, narrower than the key space."""
+    return dict(
+        reduce_rows=mod.reduce_rows(seg, 8, sr, sorted=srt),
+        reduce_cols=mod.reduce_cols(seg, 10, sr, sorted=srt),
+        spmv=mod.spmv(seg, x_cols, 8, sr, sorted=srt),
+        spmv_t=mod.spmv_t(seg, x_rows, 10, sr, sorted=srt),
+        to_dense=mod.to_dense(seg, 8, 10, sr, sorted=srt),
+        total=mod.total(seg, sr, sorted=srt))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("name", SRS)
+def test_reductions_match(name, dtype):
+    """reduce_rows/reduce_cols/spmv/spmv_t/to_dense/total on a canonical
+    segment (sorted=True and False) and a raw one with a dirty tail
+    (sorted=False), with keys below 0 and past the view; one segment and a
+    stacked batch of three (against ``jax.vmap``).  Exact for int32 values,
+    rtol 1e-4 for float32 (sums in another order)."""
+    t, j = tsr.get(name), jsr.get(name)
+    canon, raw = _segments(name, dtype)
+    rng = np.random.default_rng(8)
+    x_rows = rng.integers(-5, 5, 8).astype(np.float32)
+    x_cols = rng.integers(-5, 5, 10).astype(np.float32)
+    (jxr, jxc), (txr, txc) = tp.both(x_rows, x_cols)
+    for (tseg, jseg), srts in ((canon, (True, False)), (raw, (False,))):
+        for srt in srts:
+            got = _reductions(tassoc, tseg, txr, txc, t, srt)
+            want = _reductions(jassoc, jseg, jxr, jxc, j, srt)
+            for k in got:
+                tp.assert_vals(got[k].numpy(), np.asarray(want[k]),
+                               exact=False, what=f"{k} sorted={srt}")
+            tb = tassoc.AssocSegment(*(torch.stack([x] * 3) for x in (
+                tseg.hi, tseg.lo, tseg.val, tseg.nnz)))
+            tb = dataclasses.replace(
+                tb, nnz=torch.tensor([int(tseg.nnz), 0, 5], dtype=torch.int32))
+            jb = jassoc.AssocSegment(
+                *(jnp.stack([x] * 3) for x in (jseg.hi, jseg.lo, jseg.val)),
+                nnz=jnp.asarray(tb.nnz.numpy()))
+            got = _reductions(tassoc, tb, txr, txc, t, srt)
+            want = jax.vmap(lambda s: _reductions(jassoc, s, jxr, jxc, j,
+                                                  srt))(jb)
+            for k in got:
+                tp.assert_vals(got[k].numpy(), np.asarray(want[k]),
+                               exact=False, what=f"batched {k} sorted={srt}")
+    tlo, tval, tm = tassoc.extract_row(canon[0], 3)
+    jlo, jval, jm = jassoc.extract_row(canon[1], 3)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(tlo.numpy()[tm.numpy()],
+                                  np.asarray(jlo)[np.asarray(jm)])
