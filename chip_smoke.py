@@ -64,10 +64,28 @@ caught and passed over):
    window drops), ``range_total``, the degree vectors, ``spmv``,
    ``spmv_t``, ``ata_correlation``, ``row_occupancy`` and ``top_k_rows``
    equal, exactly, the same queries on each instance's flushed state or
-   the reductions of its ``query_all``.
+   the reductions of its ``query_all``;
+10. checkpoint, resume, elastic resize and contracts (``fault_phase``):
+   phase 4's run with ``--ckpt-dir --ckpt-every 4``, its checkpoints of
+   rounds 12 and 16 removed (a crash after round 10), then ``--resume``:
+   the run restarts at round 8, launches ``merge_multi`` and ends equal to
+   the uninterrupted run, leaf for leaf (the checkpoint's MiB and the wall
+   time of ``save`` and ``restore`` printed); the final state saved and
+   restored onto the CPU, equal; the fleet shrunk 32 -> 16 and grown
+   32 -> 40 by ``runtime.rebalance_instances`` with the exact counter,
+   overflow 0 and every key's total kept; a bfloat16 fleet (8 instances,
+   32 blocks) whose kernel route launches ``merge_multi`` and equals the
+   sort route, with ``top_k_rows`` equal to the float32 ranking of its
+   totals; and under ``REPRO_CHECK=1`` a checked kernel-route ingest of 8
+   instances that passes, and a checkpoint with a corrupted layer-1 tail
+   that ``restore`` refuses, naming the invariant.
 
-Phase 3 also holds the ``embedding_bag`` and ``segment_agg`` kernels
-against their plain versions (and oracles) on their registry jobs, then
+Phase 3 also holds both merges with float16 and bfloat16 values against
+their plain versions under the four semirings (keys and nnz exact,
+integer-valued payloads exact, normal ones within rtol 1e-2 for bf16 and
+2e-3 for f16) and profiles them at the float32 rows' shapes.  It also
+holds the ``embedding_bag`` and ``segment_agg`` kernels against their
+plain versions (and oracles) on their registry jobs, then
 times kernel, plain version and the PyTorch library call computing the
 same function (``F.embedding_bag``, ``index_add_``; timed only, never on
 the path) at the paths' shapes: ``serve_bulk`` on the full table, and
@@ -86,7 +104,9 @@ which the node-tiled kernel read.
 It prints the card line, one JSON line with every kernel's numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
-the kernel took powers of two only), and as its last line ``{"ok": true, "device": {...}}``.
+the kernel took powers of two only; both merge rows carry their float16
+and bfloat16 numbers under those keys), and as its last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -94,6 +114,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -101,6 +122,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 OPS_PER_S = 67e12              # H100 SXM float32 rate outside the tensor cores
 TOL = 1e-4                     # registry merge rtol
+# 16-bit merges: the order of 16-bit adds may differ from the plain
+# version's, each add rounding (rtol, atol the same)
+TOL16 = {"bfloat16": 1e-2, "float16": 2e-3}
+SEMIRINGS = ("plus.times", "max.plus", "min.plus", "max.min")
 DENSE_TOL = 2e-5               # registry embedding_bag / segment_agg rtol
 SERVE_P99, SERVE_BULK = 512, 262_144          # RECSYS_SHAPES batches
 N_CANDIDATES = 1_000_192       # retrieval_cand's 1M padded to 256
@@ -133,9 +158,10 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(got, want, exact_vals: bool, what: str) -> float:
-    """Keys and nnz exact, values exact or within TOL; returns the largest
-    absolute value difference over finite entries."""
+def compare(got, want, exact_vals: bool, what: str, rtol: float = TOL,
+            atol: float = 1e-6) -> float:
+    """Keys and nnz exact, values exact or within rtol (TOL unless told);
+    returns the largest absolute value difference over finite entries."""
     import torch
     for j, name in ((0, "hi"), (1, "lo"), (3, "nnz")):
         if not torch.equal(got[j], want[j]):
@@ -148,7 +174,7 @@ def compare(got, want, exact_vals: bool, what: str) -> float:
     err = float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
     if exact_vals and err != 0.0:
         raise AssertionError(f"{what}: integer values differ by {err}")
-    if not torch.allclose(g[fin], w[fin], rtol=TOL, atol=1e-6):
+    if not torch.allclose(g[fin], w[fin], rtol=rtol, atol=atol):
         raise AssertionError(f"{what}: values differ by {err}")
     return err
 
@@ -414,7 +440,88 @@ def kernel_phase(torch, registry, hm, assoc, sr_mod):
                 sort_route_ms=sort_ms, bound_ms=bound_ms,
                 device_us=prof["device_us"],
                 kernels_per_call=prof["kernels_per_call"])
+    merge16_checks(torch, hm, canon, block, compare, results)
     return results
+
+
+def merge16_checks(torch, hm, canon, block, compare, results):
+    """Both merges with float16 and bfloat16 values, under the four
+    semirings, against their plain versions on the card: keys and nnz
+    exact, integer-valued payloads (|v| <= 200, exact in 16 bits) exact,
+    normal payloads within TOL16; then each kernel's device µs, kernels
+    per call and host-paced ms at the main path's shapes (plus.times,
+    normal payloads), beside the float32 row, with the byte bound at
+    2-byte values."""
+    import numpy as np
+    from repro_torch.launch.profile_merge import merge_profile
+
+    def as16(ops, tdt, integer):
+        out = []
+        for h, lo, v in ops:
+            if integer:
+                v = torch.round(v * 50)      # +-inf stay +-inf
+            out.append((h, lo, v.to(tdt)))
+        return out
+
+    for dtype, rtol in TOL16.items():
+        tdt = getattr(torch, dtype)
+        for kname, shape in (("hier_merge.merge_multi", (3072, 16384)),
+                             ("hier_merge.merge", (19456, 13312))):
+            first_sorted = kname == "hier_merge.merge"
+            rec = results[kname].setdefault(dtype, dict(max_abs_err=0.0))
+            for sr_name in SEMIRINGS:
+                for integer in (True, False):
+                    ops = [canon(c, 1 << 14, np.float32, sr_name)
+                           if first_sorted or i else
+                           block(c, 1 << 14, np.float32)
+                           for i, c in enumerate(shape)]
+                    ops = as16(ops, tdt, integer)
+                    if first_sorted:
+                        def kern(ops=ops, sr_name=sr_name):
+                            return hm.merge_cuda(*ops[0], *ops[1],
+                                                 sr_name=sr_name)
+
+                        def plain(ops=ops, sr_name=sr_name):
+                            return hm.merge_plain(*ops[0], *ops[1],
+                                                  sr_name=sr_name)
+                    else:
+                        def kern(ops=ops, sr_name=sr_name):
+                            return hm.merge_multi_cuda(ops[0], ops[1:],
+                                                       sr_name=sr_name)
+
+                        def plain(ops=ops, sr_name=sr_name):
+                            return hm.merge_multi_plain(ops[0], ops[1:],
+                                                        sr_name=sr_name)
+                    got = kern()
+                    label = (f"{kname} {dtype} {sr_name} "
+                             f"{'integer' if integer else 'normal'}")
+                    if got[2].dtype != tdt:
+                        raise AssertionError(f"{label}: values came back "
+                                             f"{got[2].dtype}")
+                    err = compare(got, plain(), integer, f"{label} vs plain",
+                                  rtol=rtol, atol=rtol)
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    if sr_name != "plus.times" or integer:
+                        continue
+                    prof = merge_profile(torch, kern)
+                    ms, plain_ms = time_ms(kern), time_ms(plain, 5, 1)
+                    bound_ms, bound_by = merge_bound(list(shape),
+                                                     first_sorted,
+                                                     val_bytes=2)
+                    rec.update(shape="+".join(map(str, shape)), ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by,
+                               device_us=prof["device_us"],
+                               kernels_per_call=prof["kernels_per_call"])
+                    print(f"{label} {rec['shape']}: nnz {int(got[3][0])} "
+                          f"kernel {ms:.4f} ms, device_us "
+                          f"{prof['device_us']:.2f}, kernels_per_call "
+                          f"{prof['kernels_per_call']:g}, plain "
+                          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+                          f"({bound_by}); {prof['kernels']}", flush=True)
+            print(f"{kname} {dtype}: == plain under the four semirings "
+                  f"(integer payloads exact, normal within rtol {rtol}; "
+                  f"max_abs_err {rec['max_abs_err']:.3g})", flush=True)
 
 
 def path_kernel_phase(torch, mesh, gat_dst):
@@ -1120,6 +1227,254 @@ def service_phase(torch, args, width: int = 64) -> dict:
     return res
 
 
+def _states_close(torch, a, b, rtol: float, what: str) -> None:
+    """Two fleets of any value dtype: keys, nnz, spills, overflow and
+    counters equal, values within rtol (atol the same) in float32."""
+    for i, (la, lb) in enumerate(zip(a.layers, b.layers)):
+        for f in ("hi", "lo", "nnz"):
+            if not torch.equal(getattr(la, f), getattr(lb, f)):
+                raise AssertionError(f"{what}: layer {i} {f} differs")
+        va, vb = la.val.float(), lb.val.float()
+        fin = torch.isfinite(vb)
+        if not torch.equal(torch.isfinite(va), fin) or \
+                not torch.equal(va[~fin], vb[~fin]) or \
+                not torch.allclose(va[fin], vb[fin], rtol=rtol, atol=rtol):
+            raise AssertionError(f"{what}: layer {i} values differ")
+    for f in ("spills", "overflow", "n_updates"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def _live(seg):
+    k = int(seg.nnz)
+    return seg.hi[:k], seg.lo[:k], seg.val[:k]
+
+
+def _check_rebalance(torch, before, after, lazy: bool, what: str) -> None:
+    """``after`` (n_new instances) against ``before``: the exact update
+    total, overflow 0; a shrunk fleet's instance j holds exactly the
+    semiring merge of the old instances i with i % n_new == j (the same
+    keys, each key's total unchanged: integer-valued payloads, so exact);
+    a grown fleet keeps the old instances leaf for leaf and starts the new
+    ones empty."""
+    from repro_torch.core import assoc, hier, stream
+    n_old, n_new = before.spills.shape[0], after.spills.shape[0]
+    if hier.exact_update_count(after) != hier.exact_update_count(before) \
+            or int(after.overflow.sum()) != 0:
+        raise AssertionError(f"{what}: counter or overflow changed")
+    if n_new > n_old:
+        states_equal(hier.map_state(lambda x: x[:n_old], after), before,
+                     f"{what}: kept instances")
+        if any(int(l.nnz[n_old:].sum()) for l in after.layers) or \
+                int(after.n_updates[n_old:].sum()):
+            raise AssertionError(f"{what}: new instances not empty")
+        return
+    merged = [hier.query_all(stream.instance(before, i), lazy_l0=lazy)
+              for i in range(n_old)]
+    for j in range(n_new):
+        parts = [_live(merged[i]) for i in range(j, n_old, n_new)]
+        n = sum(p[0].shape[0] for p in parts)
+        want, _ = assoc._canonicalize(*(torch.cat([p[k] for p in parts])
+                                        for k in range(3)), n,
+                                      assoc.sr_mod.PLUS_TIMES)
+        got = hier.query_all(stream.instance(after, j), lazy_l0=lazy)
+        if int(got.nnz) != int(want.nnz) or not all(
+                torch.equal(x, y) for x, y in zip(_live(got), _live(want))):
+            raise AssertionError(f"{what}: instance {j} is not the merge of "
+                                 f"its folded instances")
+
+
+def _bf16_fleet(torch, args, use_kernel: bool):
+    """``launch/ingest.py``'s rounds on a bfloat16 fleet (the CLI builds
+    float32 fleets): the same stream, the same knobs."""
+    from repro_torch.core import distributed, stream
+    from repro_torch.data.powerlaw import instance_streams
+    from repro_torch.launch import ingest
+    dev = torch.device(args.device)
+    sig = ingest.signature(args)
+    states = distributed.create_instances(args.instances, sig.cuts,
+                                          args.block_size,
+                                          dtype=torch.bfloat16, device=dev)
+    per = max(args.blocks // args.rounds, 1)
+    knobs = dict(ingest.ingest_knobs(sig), use_kernel=use_kernel)
+    for rnd in range(args.rounds):
+        rows, cols, vals = instance_streams(
+            ingest.round_generator(args.seed, rnd, dev), args.instances,
+            per, args.block_size, scale=args.scale)
+        states, _ = stream.ingest_instances(states, rows, cols, vals,
+                                            with_telemetry=False, **knobs)
+    return states
+
+
+def fault_phase(torch, args, small, tmp: str) -> dict:
+    """Phase 10: checkpoint, resume, elastic resize and contracts.
+
+    ``args`` is phase 4's command line, ``small`` the 8-instance one; both
+    name the device.  (1) Run A checkpoints every ``--ckpt-every`` rounds;
+    the checkpoints past half the rounds are removed (a crash), and run B
+    ``--resume``s from the latest one left: it restarts at half the
+    rounds, launches ``merge_multi`` (on the card) and ends equal to A,
+    leaf for leaf.  (2) A's final state, saved, restores onto the CPU
+    into an equal state.  (3) A's final fleet shrinks to half and grows by a
+    quarter (``_check_rebalance``).  (4) A bfloat16 fleet at ``small``
+    takes the kernel route (``merge_multi`` launched on the card) and
+    equals the sort route within TOL16; ``top_k_rows`` on it equals the
+    float32 ranking of its totals.  (5) Under ``REPRO_CHECK=1`` a fused
+    kernel-route ingest at ``small`` passes every check, and a checkpoint
+    whose layer-1 tail was corrupted is refused by ``restore``, naming
+    the invariant.  Returns the numbers it printed."""
+    import argparse
+    import os
+    import shutil
+
+    import numpy as np
+    from repro_torch.analysis import contracts
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import hier
+    from repro_torch.kernels import registry
+    from repro_torch.launch import ingest
+    from repro_torch.query import analytics
+    from repro_torch.runtime import rebalance_instances
+
+    on_card = torch.device(args.device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    res = {}
+    d = os.path.join(tmp, "fleet")
+    a_args = argparse.Namespace(**{**vars(args), "ckpt_dir": d})
+    out_a, a = ingest.run_with_state(a_args)
+    want_updates = args.instances * args.blocks * args.block_size
+    steps = sorted(int(n.split("_")[1]) for n in os.listdir(d))
+    if steps != list(range(args.ckpt_every, args.rounds + 1,
+                           args.ckpt_every)):
+        raise AssertionError(f"run A wrote checkpoints {steps}")
+    crash = args.rounds // 2
+    for step in steps:
+        if step > crash:
+            shutil.rmtree(os.path.join(d, f"step_{step}"))
+    resume_at = ckpt.latest_step(d)
+    registry.reset_launches()
+    out_b, b = ingest.run_with_state(argparse.Namespace(
+        **{**vars(a_args), "resume": True}))
+    resumed_launches = registry.launches()
+    states_equal(a, b, "resumed run vs uninterrupted run")
+    per_round = args.instances * max(args.blocks // args.rounds, 1) \
+        * args.block_size
+    rounds_run = out_b["total_updates"] // per_round
+    if resume_at != crash or rounds_run != args.rounds - crash or \
+            out_b["n_updates_counter"] != want_updates or \
+            out_a["n_updates_counter"] != want_updates:
+        raise AssertionError(f"resume: at {resume_at}, {rounds_run} rounds, "
+                             f"counter {out_b['n_updates_counter']}")
+    if on_card and resumed_launches["hier_merge.merge_multi"] == 0:
+        raise AssertionError("the resumed run never launched merge_multi")
+
+    timed = os.path.join(tmp, "timed")
+    sync()
+    t0 = time.perf_counter()
+    path = ckpt.save(timed, args.rounds, a)
+    save_s = time.perf_counter() - t0
+    size_mib = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path)) / 2**20
+    t0 = time.perf_counter()
+    r = ckpt.restore(timed, args.rounds, a)
+    sync()
+    restore_s = time.perf_counter() - t0
+    states_equal(r, a, "restore vs saved")
+    on_cpu = ckpt.restore(timed, args.rounds, a, device="cpu")
+    if on_cpu.device.type != "cpu":
+        raise AssertionError("restore(device='cpu') left the CPU")
+    states_equal(on_cpu, a, "checkpoint restored on the CPU vs saved")
+    res.update(counter=out_b["n_updates_counter"], resumed_at=resume_at,
+               rounds_run=rounds_run,
+               resumed_merge_multi=resumed_launches["hier_merge.merge_multi"],
+               checkpoint_mib=size_mib, save_s=save_s, restore_s=restore_s)
+    print(f"resume: run B restarted at round {resume_at}, ran {rounds_run} "
+          f"rounds, counter {out_b['n_updates_counter']}, equal to run A; "
+          f"launches {resumed_launches}; checkpoint {size_mib:.3f} MiB, "
+          f"save {save_s:.4f} s, restore {restore_s:.4f} s; restored on "
+          f"the CPU == saved", flush=True)
+
+    lazy = a_args.lazy_l0 != "off"
+    for n_new in (args.instances // 2, args.instances + args.instances // 4):
+        t0 = time.perf_counter()
+        out = rebalance_instances(a, n_new)
+        sync()
+        res[f"rebalance_{n_new}_s"] = time.perf_counter() - t0
+        _check_rebalance(torch, a, out, lazy,
+                         f"rebalance {args.instances} -> {n_new}")
+        print(f"rebalance {args.instances} -> {n_new}: counter "
+              f"{hier.exact_update_count(out)}, overflow 0, every key's "
+              f"total kept in "
+              f"{res[f'rebalance_{n_new}_s']:.4f} s", flush=True)
+        del out
+
+    registry.reset_launches()
+    f16 = _bf16_fleet(torch, small, use_kernel=True)
+    bf16_launches = registry.launches()
+    ref16 = _bf16_fleet(torch, small, use_kernel=False)
+    _states_close(torch, f16, ref16, TOL16["bfloat16"],
+                  "bf16 kernel route vs sort route")
+    if on_card and bf16_launches["hier_merge.merge_multi"] == 0:
+        raise AssertionError("the bf16 fleet never launched merge_multi")
+    n_keys, k = 1 << small.scale, 8
+    totals, ids = analytics.top_k_rows(f16, n_keys, k)
+    as32 = hier.map_state(
+        lambda x: x.float() if x.dtype == torch.bfloat16 else x, f16)
+    t32, i32 = analytics.top_k_rows(as32, n_keys, k)
+    if totals.dtype != torch.bfloat16 or not torch.equal(ids, i32) or \
+            not torch.equal(totals.float(), t32):
+        raise AssertionError("bf16 top_k_rows != the float32 ranking")
+    res.update(bf16_launches=bf16_launches,
+               bf16_top1=[float(totals[0, 0]), int(ids[0, 0])])
+    print(f"bf16 fleet: kernel route == sort route (rtol "
+          f"{TOL16['bfloat16']}); launches {bf16_launches}; top_k_rows == "
+          f"the float32 ranking (instance 0's top row {int(ids[0, 0])} at "
+          f"{float(totals[0, 0])})", flush=True)
+    del f16, ref16, as32
+
+    prev = os.environ.get(contracts.ENV_VAR)
+    os.environ[contracts.ENV_VAR] = "1"
+    try:
+        registry.reset_launches()
+        out_c, c = ingest.run_with_state(small)
+        checked_launches = registry.launches()
+        bad = ckpt.save(os.path.join(tmp, "corrupt"), 1, c)
+        with open(os.path.join(bad, "manifest.json")) as f:
+            leaf = next(l for l in json.load(f)["leaves"]
+                        if l["path"] == ".layers/1/.val")
+        vals = np.load(os.path.join(bad, leaf["file"]))
+        # a tail slot: the last of the least-filled instance's layer 1
+        vals[int(torch.argmin(c.layers[1].nnz)), -1] = 123.0
+        np.save(os.path.join(bad, leaf["file"]), vals)
+        try:
+            ckpt.restore(os.path.join(tmp, "corrupt"), 1, c)
+        except contracts.ContractViolation as e:
+            refused = str(e)
+        else:
+            raise AssertionError("a corrupted checkpoint restored under "
+                                 "REPRO_CHECK=1")
+    finally:
+        if prev is None:
+            os.environ.pop(contracts.ENV_VAR)
+        else:
+            os.environ[contracts.ENV_VAR] = prev
+    if "sentinel-tail violation in restore step_1 layer 1" not in refused:
+        raise AssertionError(f"restore refused for another reason: "
+                             f"{refused}")
+    if on_card and checked_launches["hier_merge.merge_multi"] == 0:
+        raise AssertionError("the checked ingest never launched merge_multi")
+    res.update(checked_updates_per_s=out_c["updates_per_s"],
+               refused=refused)
+    print(f"REPRO_CHECK=1: the checked ingest passed (counter "
+          f"{out_c['n_updates_counter']}, launches {checked_launches}); "
+          f"the corrupted checkpoint was refused: {refused}", flush=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1324,6 +1679,18 @@ def main() -> int:
           f"merge_multi launched {svc['query_launches']['hier_merge.merge_multi']}"
           f" times by {svc['query_batches']} query batches; peak device "
           f"memory {svc['peak_gib']:.3f} GiB; {card}", flush=True)
+
+    phase("10 checkpoint, resume, elastic resize, contracts: d4m_stream "
+          "geometry, 32 instances")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fault = fault_phase(torch, ingest_args(ckpt_every=4),
+                            ingest_args(instances=8, blocks=32, rounds=4),
+                            tmp)
+    print(json.dumps(fault), flush=True)
+    print(f"phase 10 wall {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
 
     kernels = []
     for name, source, replaces, launches in (

@@ -57,6 +57,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import registry
@@ -225,7 +226,8 @@ def merge_kernel(a: AssocSegment, b: AssocSegment, out_capacity: int,
 
 def merge_many(segments, hi: Tensor, lo: Tensor, val: Tensor, *,
                out_capacity: int, sr: Semiring = sr_mod.PLUS_TIMES,
-               use_kernel: bool = False) -> Tuple[AssocSegment, Tensor]:
+               use_kernel: bool = False,
+               debug: bool = False) -> Tuple[AssocSegment, Tensor]:
     """Semiring-merge k canonical segments plus one RAW (unsorted, possibly
     duplicated, sentinel-masked) COO buffer in a SINGLE canonicalization.
 
@@ -235,8 +237,23 @@ def merge_many(segments, hi: Tensor, lo: Tensor, val: Tensor, *,
     kernel is used below its capacity ceiling (only the block is sorted;
     the sorted runs are merged, not re-sorted); otherwise one sort does
     everything.
+
+    ``debug`` (or a call inside ``contracts.activate()``, as the checked
+    front doors make under ``REPRO_CHECK=1``) checks that every input run
+    really is canonical — the precondition this whole fusion trades on —
+    and that the merged output is too.
     """
-    return _merge_many_impl(tuple(segments), hi, lo, val,
+    segments = tuple(segments)
+    if debug or contracts.deep_checks_active():
+        for i, s in enumerate(segments):
+            contracts.check_canonical(s, sr,
+                                      name=f"merge_many input run {i}")
+        out, ovf = _merge_many_impl(segments, hi, lo, val,
+                                    out_capacity=out_capacity, sr=sr,
+                                    use_kernel=use_kernel)
+        contracts.check_canonical(out, sr, name="merge_many output")
+        return out, ovf
+    return _merge_many_impl(segments, hi, lo, val,
                             out_capacity=out_capacity, sr=sr,
                             use_kernel=use_kernel)
 

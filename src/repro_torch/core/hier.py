@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, stages
+from repro_torch.analysis import contracts
 from repro_torch.core import assoc
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core.assoc import AssocSegment
@@ -500,6 +501,10 @@ def update(h: HierAssoc, rows, cols, vals, mask=None,
     fused spill cascade (``_update_fused``); ``fused=False`` keeps the
     per-layer reference cascade.  ``batch_mode`` (fused only): ``"switch"``
     or ``"branchfree"``.  Returns a new state; ``h`` is not modified.
+
+    Under ``REPRO_CHECK=1`` the input and output states are checked
+    against the contracts (layer 0 as a raw buffer with ``lazy_l0``), and
+    every merge inside (``analysis/contracts.py``).
     """
     sig = stages.signature_for_state(
         h, sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0, fused=fused,
@@ -507,6 +512,15 @@ def update(h: HierAssoc, rows, cols, vals, mask=None,
         allowed_batch_modes=("switch", "branchfree"))
     rows, cols, vals, mask = _as_block(h, rows, cols, vals, mask)
     sr = sr_mod.get(sig.sr)
+    return contracts.checked(
+        "hier.update", h, sr,
+        lambda: _update_body(h, rows, cols, vals, mask, sr, sig),
+        l0_sorted=not lazy_l0)
+
+
+def _update_body(h: HierAssoc, rows, cols, vals, mask, sr: Semiring,
+                 sig: stages.Signature) -> HierAssoc:
+    use_kernel, lazy_l0 = sig.use_kernel, sig.lazy_l0
     if sig.fused:
         return _update_fused(h, rows, cols, vals, mask, sr, use_kernel,
                              lazy_l0, batch_mode=sig.batch_mode)
@@ -609,10 +623,20 @@ def flush(h: HierAssoc, sr: Semiring = sr_mod.PLUS_TIMES,
     ``fused=True`` (default) drains with a single canonicalization
     (``_flush_fused``); ``fused=False`` keeps the pairwise per-layer
     reference drain.  Both record a spill event per non-empty source layer
-    and the ``spills[-1]`` pressure bump.
+    and the ``spills[-1]`` pressure bump.  Under ``REPRO_CHECK=1`` the
+    input and the drained output are checked (every layer of the output is
+    canonical, layer 0 emptied).
     """
     sr = sr_mod.get(stages.signature_for_state(
         h, sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0, fused=fused).sr)
+    return contracts.checked(
+        "hier.flush", h, sr,
+        lambda: _flush_body(h, sr, use_kernel, lazy_l0, fused),
+        l0_sorted=not lazy_l0, out_l0_sorted=True)
+
+
+def _flush_body(h: HierAssoc, sr: Semiring, use_kernel: bool,
+                lazy_l0: bool, fused: bool) -> HierAssoc:
     if fused:
         return _flush_fused(h, sr, use_kernel)
     layers = list(h.layers)

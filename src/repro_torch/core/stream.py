@@ -34,6 +34,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch import stages
+from repro_torch.analysis import contracts
 from repro_torch.core import hier
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core.hier import HierAssoc
@@ -231,15 +232,20 @@ def update_instances(states: HierAssoc, rows, cols, vals,
 
     ``mask`` ([I, B] bool) blanks per-entry updates exactly like
     ``hier.update``'s mask.  Equivalent per instance to
-    ``hier.update(fused=True)``; returns a new state.
+    ``hier.update(fused=True)``; returns a new state.  Under
+    ``REPRO_CHECK=1`` the input and output states, the planned depths and
+    every merge are checked (``analysis/contracts.py``).
     """
     stages.signature_for_state(
         states, sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0,
         batch_mode=batch_mode, allowed_batch_modes=("grouped", "bucketed"))
     rows, cols, vals, mask = hier._as_block(states, rows, cols, vals, mask)
-    return _update_instances_(clone_state(states), rows, cols, vals,
-                              sr_mod.get(getattr(sr, "name", sr)),
-                              use_kernel, lazy_l0, batch_mode, mask)
+    sr = sr_mod.get(getattr(sr, "name", sr))
+    return contracts.checked(
+        "stream.update_instances", states, sr,
+        lambda: _update_instances_(clone_state(states), rows, cols, vals, sr,
+                                   use_kernel, lazy_l0, batch_mode, mask),
+        l0_sorted=not lazy_l0)
 
 
 def _update_instances_(states, rows, cols, vals, sr, use_kernel, lazy_l0,
@@ -253,6 +259,11 @@ def _update_instances_(states, rows, cols, vals, sr, use_kernel, lazy_l0,
     rows, cols, vals, n_live = hier._prepare_block(states, rows, cols, vals,
                                                    mask, sr)
     depths = hier._plan_spill_depth(states, n_live).tolist()
+    if contracts.deep_checks_active():
+        # the plan the executor trusts to slice layers, bound-checked
+        # against the hierarchy's depth
+        contracts.check_plan(depths, states.cuts,
+                             name="stream.update_instances")
     kw = dict(sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0,
               may_not_fit=may_not_fit)
     if batch_mode == "grouped":
@@ -285,7 +296,9 @@ def ingest_instances(states: HierAssoc, rows, cols, vals,
     per-input-block units under ``chunk``).  Returns a new state.
     ``with_telemetry=False`` returns ``None`` for the telemetry, and the
     grouped and bucketed modes then take no per-step snapshot (the
-    service's hot path).
+    service's hot path).  Under ``REPRO_CHECK=1`` the input and output
+    states, every step's planned depths and every merge are checked
+    (``analysis/contracts.py``).
     """
     sig = stages.signature_for_state(
         states, sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0, fused=fused,
@@ -293,6 +306,16 @@ def ingest_instances(states: HierAssoc, rows, cols, vals,
     rows, cols, vals = (torch.as_tensor(x, device=states.device)
                         for x in (rows, cols, vals))
     sr = sr_mod.get(sig.sr)
+    return contracts.checked(
+        "stream.ingest_instances", states, sr,
+        lambda: _ingest_instances(states, rows, cols, vals, sr, use_kernel,
+                                  lazy_l0, fused, chunk, batch_mode,
+                                  with_telemetry),
+        l0_sorted=not lazy_l0)
+
+
+def _ingest_instances(states, rows, cols, vals, sr, use_kernel, lazy_l0,
+                      fused, chunk, batch_mode, with_telemetry):
     I = rows.shape[0]
     if not fused or batch_mode in ("switch", "branchfree"):
         mode = batch_mode if batch_mode in ("switch", "branchfree") \

@@ -56,8 +56,16 @@
 // without rank CTAs), against 13 and 10 for the bitonic design this
 // replaces.  Everything runs on the caller's stream with no host
 // synchronisation; the caller allocates one buffer for the outputs and nnz
-// (3N + 1 words) and one for the scratch (hm_scratch_words), which it may
-// free once the call is enqueued, and makes one call.
+// (2N + 1 words of keys and nnz, then N values) and one for the scratch
+// (hm_scratch_words), which it may free once the call is enqueued, and makes
+// one call.
+//
+// Values.  float32, int32, float16 or bfloat16, as the reference's kernel
+// route takes any dtype.  Every pass moves a value as its storage word (32
+// or 16 bits); only the combine reads it as a number.  A 16-bit add widens
+// both operands to float32 and rounds the sum back once, as PyTorch adds
+// two 16-bit tensors, so each add rounds to 16 bits like the reference's
+// combine in the value dtype; max and min compare the widened values.
 //
 // Limits.  N < 2^29 (keep counts fill 29 bits of a status word), and at
 // most kMaxOperands = 256 sorted operands: the block's 4,096-entry chunks
@@ -67,6 +75,8 @@
 // with the square of its chunks: the route rule keeps the main path at one
 // chunk and one run.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -95,6 +105,42 @@ __device__ __forceinline__ bool lex_gt(int ha, int la, int hb, int lb) {
   return ha > hb || (ha == hb && la > lb);
 }
 
+// A value type's storage word S and its bit casts; the status words, the
+// shuffles and the zero carry a value as its bits, zero-extended to 32.
+template <typename V> struct Val;
+template <> struct Val<float> {
+  using S = uint32_t;
+  __device__ static float of(uint32_t b) { return __uint_as_float(b); }
+  __device__ static uint32_t bits(float v) { return __float_as_uint(v); }
+};
+template <> struct Val<int> {
+  using S = uint32_t;
+  __device__ static int of(uint32_t b) { return static_cast<int>(b); }
+  __device__ static uint32_t bits(int v) { return static_cast<uint32_t>(v); }
+};
+template <> struct Val<__half> {
+  using S = uint16_t;
+  __device__ static __half of(uint32_t b) {
+    return __ushort_as_half(static_cast<unsigned short>(b));
+  }
+  __device__ static uint32_t bits(__half v) { return __half_as_ushort(v); }
+  __device__ static float wide(__half v) { return __half2float(v); }
+  __device__ static __half narrow(float f) { return __float2half_rn(f); }
+};
+template <> struct Val<__nv_bfloat16> {
+  using S = uint16_t;
+  __device__ static __nv_bfloat16 of(uint32_t b) {
+    return __ushort_as_bfloat16(static_cast<unsigned short>(b));
+  }
+  __device__ static uint32_t bits(__nv_bfloat16 v) {
+    return __bfloat16_as_ushort(v);
+  }
+  __device__ static float wide(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static __nv_bfloat16 narrow(float f) {
+    return __float2bfloat16_rn(f);
+  }
+};
+
 // ------------------------------------------------------------ launch 1 ----
 
 // The order of signed lexicographic (hi, lo) as one unsigned 64-bit key.
@@ -109,13 +155,16 @@ __device__ __forceinline__ unsigned long long order_key(int h, int l) {
 // is stable and SENTINEL keys go last); each warp counts over one slice of
 // the chunk's keys, staged in shared memory, and warp 0 sums the slices and
 // writes each entry to its rank.
+template <typename S>
 __device__ void rank_group(const int* __restrict__ bh,
                            const int* __restrict__ bl,
-                           const uint32_t* __restrict__ bv, int len,
-                           int group, int* __restrict__ sh,
-                           int* __restrict__ sl, uint32_t* __restrict__ sv) {
+                           const S* __restrict__ bv, int len, int group,
+                           int* __restrict__ sh, int* __restrict__ sl,
+                           S* __restrict__ sv) {
   __shared__ unsigned long long s_key[kRankCap];
   __shared__ int s_cnt[kPrepThreads / 32][32];
+  static_assert(sizeof(s_key) + sizeof(s_cnt) <= 48 * 1024,
+                "a chunk's rank tiles exceed static shared memory");
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int j = t; j < len; j += blockDim.x) s_key[j] = order_key(bh[j], bl[j]);
   __syncthreads();
@@ -144,13 +193,14 @@ __device__ void rank_group(const int* __restrict__ bh,
 // CTAs [0, n_rank) rank-sort the block's chunks into (sh, sl, sv), 32
 // entries each; the others fill out[0, n_out) with SENTINEL / zero and zero
 // the look-back state.
+template <typename S>
 __global__ void __launch_bounds__(kPrepThreads)
 prepare_kernel(const int* __restrict__ bh, const int* __restrict__ bl,
-               const uint32_t* __restrict__ bv, int n_block, int n_rank,
+               const S* __restrict__ bv, int n_block, int n_rank,
                int* __restrict__ sh, int* __restrict__ sl,
-               uint32_t* __restrict__ sv, int* __restrict__ oh,
-               int* __restrict__ ol, uint32_t* __restrict__ ov, int n_out,
-               uint32_t zero_bits, unsigned long long* __restrict__ state,
+               S* __restrict__ sv, int* __restrict__ oh,
+               int* __restrict__ ol, S* __restrict__ ov, int n_out,
+               S zero_bits, unsigned long long* __restrict__ state,
                int n_state) {
   const int b = blockIdx.x;
   if (b < n_rank) {
@@ -172,7 +222,15 @@ prepare_kernel(const int* __restrict__ bh, const int* __restrict__ bl,
 // ------------------------------------------------------------ launch 2+ ---
 
 // The semiring's add; its zero is the identity, which the scans rely on.
-template <typename V, int Kind> struct Combine;
+// 16-bit values (the primary templates) go through float32: one rounding
+// per add, and max / min of the widened values.
+template <typename V, int Kind> struct Combine {
+  __device__ static V f(V a, V b) {
+    const float x = Val<V>::wide(a), y = Val<V>::wide(b);
+    if (Kind == 0) return Val<V>::narrow(x + y);
+    return (Kind == 1 ? x > y : x < y) ? a : b;
+  }
+};
 template <> struct Combine<float, 0> {
   __device__ static float f(float a, float b) { return a + b; }
 };
@@ -182,26 +240,18 @@ template <> struct Combine<int, 0> {  // wraps like the reference's int32 add
                             static_cast<unsigned>(b));
   }
 };
-template <typename V> struct Combine<V, 1> {
-  __device__ static V f(V a, V b) { return a > b ? a : b; }
+template <> struct Combine<float, 1> {
+  __device__ static float f(float a, float b) { return a > b ? a : b; }
 };
-template <typename V> struct Combine<V, 2> {
-  __device__ static V f(V a, V b) { return a < b ? a : b; }
+template <> struct Combine<int, 1> {
+  __device__ static int f(int a, int b) { return a > b ? a : b; }
 };
-
-template <typename V> __device__ V from_bits(uint32_t b);
-template <> __device__ float from_bits<float>(uint32_t b) {
-  return __uint_as_float(b);
-}
-template <> __device__ int from_bits<int>(uint32_t b) {
-  return static_cast<int>(b);
-}
-__device__ __forceinline__ uint32_t to_bits(float v) {
-  return __float_as_uint(v);
-}
-__device__ __forceinline__ uint32_t to_bits(int v) {
-  return static_cast<uint32_t>(v);
-}
+template <> struct Combine<float, 2> {
+  __device__ static float f(float a, float b) { return a < b ? a : b; }
+};
+template <> struct Combine<int, 2> {
+  __device__ static int f(int a, int b) { return a < b ? a : b; }
+};
 
 // A tile's status word: [63:62] status (0 none, 1 aggregate, 2 inclusive
 // prefix), [61] head seen, [60:32] keep count, [31:0] value bits.
@@ -260,19 +310,25 @@ __device__ int diagonal(const int* __restrict__ ah, const int* __restrict__ al,
 template <bool kCombine, typename V, int Kind>
 __global__ void __launch_bounds__(kTile)
 merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
-             const uint32_t* __restrict__ av, int na,
+             const typename Val<V>::S* __restrict__ av, int na,
              const int* __restrict__ bh, const int* __restrict__ bl,
-             const uint32_t* __restrict__ bv, int nb, int* __restrict__ oh,
-             int* __restrict__ ol, uint32_t* __restrict__ ov,
+             const typename Val<V>::S* __restrict__ bv, int nb,
+             int* __restrict__ oh, int* __restrict__ ol,
+             typename Val<V>::S* __restrict__ ov,
              unsigned long long* __restrict__ state, int* __restrict__ nnz,
              uint32_t zero_bits) {
+  using S = typename Val<V>::S;
   __shared__ int s_h[kTile], s_l[kTile];
-  __shared__ uint32_t s_v[kTile];
+  __shared__ S s_v[kTile];
   __shared__ int m_h[kTile + 2], m_l[kTile + 2];
   __shared__ int s_diag[2], s_tile, s_keep[kTile / 32], s_wf[kTile / 32];
-  __shared__ V s_wv[kTile / 32];
+  __shared__ uint32_t s_wv[kTile / 32];  // value bits
   __shared__ int s_pc, s_agg_f;
-  __shared__ V s_pv, s_agg_v;
+  __shared__ uint32_t s_pv, s_agg_v;
+  static_assert(sizeof(s_h) + sizeof(s_l) + sizeof(s_v) + sizeof(m_h) +
+                        sizeof(m_l) + sizeof(s_keep) + sizeof(s_wf) +
+                        sizeof(s_wv) + 64 <= 48 * 1024,
+                "a merge tile exceeds static shared memory");
 
   const int n = na + nb;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -319,7 +375,7 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
 
   // This thread's output position s + t: diagonal t of the two slices.
   int h = kSentinel, l = kSentinel;
-  uint32_t vb = zero_bits;
+  S vb = static_cast<S>(zero_bits);
   if (t < cnt) {
     int lo = max(0, t - cb), hi = min(t, ca);
     while (lo < hi) {
@@ -348,27 +404,32 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
   const bool last = live && (pos == n - 1 || m_h[t + 2] != h ||
                              m_l[t + 2] != l);
   const bool keep = last && h != kSentinel;
-  const V zero = from_bits<V>(zero_bits);
+  const V zero = Val<V>::of(zero_bits);
 
   // Tile-local segmented inclusive scan of (head seen, value).
   int f = head;
-  V v = live ? from_bits<V>(vb) : zero;
+  V v = live ? Val<V>::of(vb) : zero;
   for (int d = 1; d < 32; d <<= 1) {
     const int pf = __shfl_up_sync(kFull, f, d);
-    const V pv = __shfl_up_sync(kFull, v, d);
+    const V pv = Val<V>::of(__shfl_up_sync(kFull, Val<V>::bits(v), d));
     if (lane >= d) {
       if (!f) v = Combine<V, Kind>::f(pv, v);
       f |= pf;
     }
   }
   const unsigned kb = __ballot_sync(kFull, keep);
-  if (lane == 31) { s_wf[warp] = f; s_wv[warp] = v; s_keep[warp] = __popc(kb); }
+  if (lane == 31) {
+    s_wf[warp] = f;
+    s_wv[warp] = Val<V>::bits(v);
+    s_keep[warp] = __popc(kb);
+  }
   __syncthreads();
   int cf = 0, ck = 0, total_keep = 0;
   V cv = zero;
   for (int w = 0; w < kTile / 32; ++w) {
     if (w < warp) {
-      cv = s_wf[w] ? s_wv[w] : Combine<V, Kind>::f(cv, s_wv[w]);
+      const V wv = Val<V>::of(s_wv[w]);
+      cv = s_wf[w] ? wv : Combine<V, Kind>::f(cv, wv);
       cf |= s_wf[w];
       ck += s_keep[w];
     }
@@ -379,24 +440,25 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
   const int dest_in_tile = ck + __popc(kb & ((1u << lane) - 1u));
 
   // The last warp holds the tile's aggregate; warp 0 publishes and looks back.
-  if (t == kTile - 1) { s_agg_f = f; s_agg_v = v; }
+  if (t == kTile - 1) { s_agg_f = f; s_agg_v = Val<V>::bits(v); }
   __syncthreads();
   if (warp == 0) {
     const int agg_f = s_agg_f;
-    const V agg_v = s_agg_v;
+    const V agg_v = Val<V>::of(s_agg_v);
     unsigned long long* status = state + 1;
     int pf = 0, pc = 0;
     V pv = zero;
     if (tile == 0) {
       if (lane == 0) store_status(status, pack(2, agg_f, total_keep,
-                                               to_bits(agg_v)));
+                                               Val<V>::bits(agg_v)));
     } else {
       if (lane == 0) store_status(status + tile, pack(1, agg_f, total_keep,
-                                                      to_bits(agg_v)));
+                                                      Val<V>::bits(agg_v)));
       // running (pf, pv, pc): tiles (base, tile) folded, earliest first
       for (int base = tile - 1;; base -= 32) {
         const int j = base - lane;
-        unsigned long long w = pack(2, 0, 0, to_bits(zero));  // before tile 0
+        // before tile 0: an inclusive prefix of nothing
+        unsigned long long w = pack(2, 0, 0, Val<V>::bits(zero));
         if (j >= 0) {
           do {
             w = load_status(status + j);
@@ -409,7 +471,7 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
         for (int q = g; q >= 0; --q) {
           const unsigned long long x = __shfl_sync(kFull, w, q);
           const int xf = static_cast<int>((x >> 61) & 1);
-          const V xv = from_bits<V>(static_cast<uint32_t>(x));
+          const V xv = Val<V>::of(static_cast<uint32_t>(x));
           wv = xf ? xv : Combine<V, Kind>::f(wv, xv);
           wf |= xf;
           wc += static_cast<int>((x >> 32) & (kMaxTotal - 1));
@@ -422,12 +484,12 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
       if (lane == 0) {
         const V inc_v = agg_f ? agg_v : Combine<V, Kind>::f(pv, agg_v);
         store_status(status + tile, pack(2, pf | agg_f, pc + total_keep,
-                                         to_bits(inc_v)));
+                                         Val<V>::bits(inc_v)));
       }
     }
     if (lane == 0) {
       s_pc = pc;
-      s_pv = pv;
+      s_pv = Val<V>::bits(pv);
       if (tile == (n - 1) / kTile) *nnz = pc + total_keep;
     }
   }
@@ -436,26 +498,29 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
     const int dest = s_pc + dest_in_tile;
     oh[dest] = h;
     ol[dest] = l;
-    ov[dest] = to_bits(f ? v : Combine<V, Kind>::f(s_pv, v));
+    ov[dest] = static_cast<S>(
+        Val<V>::bits(f ? v : Combine<V, Kind>::f(Val<V>::of(s_pv), v)));
   }
 }
 
 // ---------------------------------------------------------------- host ----
 
-struct Operand {
+template <typename S> struct Operand {
   const int* h;
   const int* l;
-  const uint32_t* v;
+  const S* v;
   int n;
 };
 
 int num_tiles(int n) { return (n + kTile - 1) / kTile; }
 int num_chunks(int n) { return (n + kRankCap - 1) / kRankCap; }
 
-// The outputs are hi, lo, val at [0, N), [N, 2N), [2N, 3N) of one buffer of
-// int32 words, nnz at 3N.  The scratch, a second buffer (8-byte aligned), is
+// The outputs are hi and lo at [0, N) and [N, 2N) of one buffer of int32
+// words, nnz at 2N, and the N values from word 2N + 1 on, each in its own
+// width (4 or 2 bytes).  The scratch, a second buffer (8-byte aligned), is
 // [state: ticket + a status word per tile][the sorted block][two ping-pong
-// buffers of N entries when the fold has 2+ passes].
+// buffers of N entries when the fold has 2+ passes], 3 words an entry
+// whatever the value's width.
 int num_passes(int block_len, int n_sorted) {
   const int ops = num_chunks(block_len) + n_sorted;
   return ops > 2 ? ops - 1 : 1;
@@ -473,9 +538,9 @@ size_t scratch_words(int block_len, int total, int n_sorted) {
   return words;
 }
 
-template <bool kCombine, typename V, int Kind>
-cudaError_t launch_merge(const Operand& a, const Operand& b, int* oh, int* ol,
-                         uint32_t* ov, unsigned long long* state, int* nnz,
+template <bool kCombine, typename V, int Kind, typename S>
+cudaError_t launch_merge(const Operand<S>& a, const Operand<S>& b, int* oh,
+                         int* ol, S* ov, unsigned long long* state, int* nnz,
                          uint32_t zero_bits, cudaStream_t s) {
   merge_kernel<kCombine, V, Kind><<<num_tiles(a.n + b.n), kTile, 0, s>>>(
       a.h, a.l, a.v, a.n, b.h, b.l, b.v, b.n, oh, ol, ov, state, nnz,
@@ -484,11 +549,10 @@ cudaError_t launch_merge(const Operand& a, const Operand& b, int* oh, int* ol,
   return cudaSuccess;
 }
 
-template <typename V>
-cudaError_t launch_combine(int kind, const Operand& a, const Operand& b,
-                           int* oh, int* ol, uint32_t* ov,
-                           unsigned long long* state, int* nnz,
-                           uint32_t zero_bits, cudaStream_t s) {
+template <typename V, typename S>
+cudaError_t launch_combine(int kind, const Operand<S>& a, const Operand<S>& b,
+                           int* oh, int* ol, S* ov, unsigned long long* state,
+                           int* nnz, uint32_t zero_bits, cudaStream_t s) {
   switch (kind) {
     case 0:
       return launch_merge<true, V, 0>(a, b, oh, ol, ov, state, nnz, zero_bits,
@@ -503,14 +567,14 @@ cudaError_t launch_combine(int kind, const Operand& a, const Operand& b,
   return cudaErrorInvalidValue;
 }
 
-// The shared host routine: src holds (hi, lo, val) pointers per source;
-// source 0 is the block (unsorted unless first_sorted), sources 1.. are
-// canonical runs.
-int run_merge(const void* const* src, const int* src_len, int n_src,
-              int first_sorted, void* out, void* scratch, int sr_kind,
-              int is_int, int zero_bits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_src < 1 || sr_kind < 0 || sr_kind > 2) return cudaErrorInvalidValue;
+// The shared host routine for values of type V: src holds (hi, lo, val)
+// pointers per source; source 0 is the block (unsorted unless
+// first_sorted), sources 1.. are canonical runs.
+template <typename V>
+int merge_values(const void* const* src, const int* src_len, int n_src,
+                 int first_sorted, void* out, void* scratch, int sr_kind,
+                 uint32_t zero_bits, cudaStream_t s) {
+  using S = typename Val<V>::S;
   long long sum = 0;
   for (int r = 0; r < n_src; ++r) {
     if (src_len[r] < 0) return cudaErrorInvalidValue;
@@ -520,8 +584,8 @@ int run_merge(const void* const* src, const int* src_len, int n_src,
   const int total = static_cast<int>(sum);
   int* oh = static_cast<int*>(out);
   int* ol = oh + total;
-  uint32_t* ov = reinterpret_cast<uint32_t*>(oh + 2 * total);
-  int* cnt = oh + 3 * total;
+  int* cnt = oh + 2 * total;
+  S* ov = reinterpret_cast<S*>(cnt + 1);
   if (total == 0) return cudaMemsetAsync(cnt, 0, sizeof(int), s);
   unsigned long long* state = static_cast<unsigned long long*>(scratch);
   const int n_state = 1 + num_tiles(total);
@@ -537,10 +601,10 @@ int run_merge(const void* const* src, const int* src_len, int n_src,
   const int inits = (total + kInitPerCta - 1) / kInitPerCta;
   int* sh = sorted;
   int* sl = sorted + block_len;
-  uint32_t* sv = reinterpret_cast<uint32_t*>(sorted + 2 * block_len);
+  S* sv = reinterpret_cast<S*>(sorted + 2 * block_len);
 
   // The sorted operands, left to right; empty ones drop out of the fold.
-  Operand ops[kMaxOperands];
+  Operand<S> ops[kMaxOperands];
   int n_ops = 0;
   for (int c = 0; c < chunks && n_ops < kMaxOperands; ++c) {
     const int off = c * kRankCap;
@@ -552,36 +616,58 @@ int run_merge(const void* const* src, const int* src_len, int n_src,
     if (n_ops == kMaxOperands) return cudaErrorInvalidValue;
     ops[n_ops++] = {static_cast<const int*>(ptr(r, 0)),
                     static_cast<const int*>(ptr(r, 1)),
-                    static_cast<const uint32_t*>(ptr(r, 2)), src_len[r]};
+                    static_cast<const S*>(ptr(r, 2)), src_len[r]};
   }
   if (chunks > kMaxOperands) return cudaErrorInvalidValue;
   if (n_ops == 1) ops[n_ops++] = {nullptr, nullptr, nullptr, 0};
 
-  prepare_kernel<<<n_rank + inits, kPrepThreads, 0, s>>>(
+  prepare_kernel<S><<<n_rank + inits, kPrepThreads, 0, s>>>(
       static_cast<const int*>(ptr(0, 0)), static_cast<const int*>(ptr(0, 1)),
-      static_cast<const uint32_t*>(ptr(0, 2)), block_len, n_rank, sh, sl, sv,
-      oh, ol, ov, total, static_cast<uint32_t>(zero_bits), state, n_state);
+      static_cast<const S*>(ptr(0, 2)), block_len, n_rank, sh, sl, sv, oh, ol,
+      ov, total, static_cast<S>(zero_bits), state, n_state);
   HM_CHECK();
 
   int* tmp = sorted + 3 * block_len;
-  Operand acc = ops[0];
+  Operand<S> acc = ops[0];
   for (int i = 1; i < n_ops; ++i) {
-    const Operand& b = ops[i];
+    const Operand<S>& b = ops[i];
     if (i == n_ops - 1) {
-      return is_int ? launch_combine<int>(sr_kind, acc, b, oh, ol, ov, state,
-                                          cnt, zero_bits, s)
-                    : launch_combine<float>(sr_kind, acc, b, oh, ol, ov,
-                                            state, cnt, zero_bits, s);
+      return launch_combine<V>(sr_kind, acc, b, oh, ol, ov, state, cnt,
+                               zero_bits, s);
     }
     int* th = tmp + ((i - 1) & 1) * 3 * total;
     const int n = acc.n + b.n;
-    uint32_t* tv = reinterpret_cast<uint32_t*>(th + 2 * n);
-    cudaError_t e = launch_merge<false, int, 0>(acc, b, th, th + n, tv, state,
-                                                cnt, zero_bits, s);
+    S* tv = reinterpret_cast<S*>(th + 2 * n);
+    cudaError_t e = launch_merge<false, V, 0>(acc, b, th, th + n, tv, state,
+                                              cnt, zero_bits, s);
     if (e != cudaSuccess) return e;
     acc = {th, th + n, tv, n};
   }
   return cudaErrorInvalidValue;  // unreachable: the fold ends in a combine
+}
+
+// vtype: 0 float32, 1 int32, 2 float16, 3 bfloat16 (the wrapper's _VTYPE).
+int run_merge(const void* const* src, const int* src_len, int n_src,
+              int first_sorted, void* out, void* scratch, int sr_kind,
+              int vtype, int zero_bits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_src < 1 || sr_kind < 0 || sr_kind > 2) return cudaErrorInvalidValue;
+  const uint32_t z = static_cast<uint32_t>(zero_bits);
+  switch (vtype) {
+    case 0:
+      return merge_values<float>(src, src_len, n_src, first_sorted, out,
+                                 scratch, sr_kind, z, s);
+    case 1:
+      return merge_values<int>(src, src_len, n_src, first_sorted, out,
+                               scratch, sr_kind, z, s);
+    case 2:
+      return merge_values<__half>(src, src_len, n_src, first_sorted, out,
+                                  scratch, sr_kind, z, s);
+    case 3:
+      return merge_values<__nv_bfloat16>(src, src_len, n_src, first_sorted,
+                                         out, scratch, sr_kind, z, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -590,7 +676,8 @@ extern "C" {
 
 // int32 words of a merge's scratch buffer: an unsorted block of block_len
 // entries (0 for the pairwise merge), n_sorted canonical operands, total
-// entries in all.  The outputs and nnz take another 3 * total + 1 words.
+// entries in all.  The outputs take another 2 * total + 1 words and the
+// values' bytes.
 long long hm_scratch_words(int block_len, int total, int n_sorted) {
   return static_cast<long long>(scratch_words(block_len, total, n_sorted));
 }
@@ -602,19 +689,19 @@ const char* hm_error_string(int e) {
 // Multi-way merge: src holds (hi, lo, val) per source; source 0 is the
 // unsorted block, sources 1..k the canonical runs.
 int hm_merge_multi(const void* const* src, const int* src_len, int n_src,
-                   void* out, void* scratch, int sr_kind, int is_int,
+                   void* out, void* scratch, int sr_kind, int vtype,
                    int zero_bits, void* stream) {
-  return run_merge(src, src_len, n_src, 0, out, scratch, sr_kind, is_int,
+  return run_merge(src, src_len, n_src, 0, out, scratch, sr_kind, vtype,
                    zero_bits, stream);
 }
 
 // Pairwise merge of two canonical segments of any lengths.
 int hm_merge(void* hi_a, void* lo_a, void* val_a, int n_a, void* hi_b,
              void* lo_b, void* val_b, int n_b, void* out, void* scratch,
-             int sr_kind, int is_int, int zero_bits, void* stream) {
+             int sr_kind, int vtype, int zero_bits, void* stream) {
   const void* src[6] = {hi_a, lo_a, val_a, hi_b, lo_b, val_b};
   const int lens[2] = {n_a, n_b};
-  return run_merge(src, lens, 2, 1, out, scratch, sr_kind, is_int, zero_bits,
+  return run_merge(src, lens, 2, 1, out, scratch, sr_kind, vtype, zero_bits,
                    stream);
 }
 

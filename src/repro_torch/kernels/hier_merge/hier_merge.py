@@ -12,15 +12,17 @@ Two kernels, hand-written in CUDA C++ for ``sm_90a``
 
 Both compute what the TPU kernels compute — the canonical segment (live
 prefix sorted by signed lexicographic (hi, lo), duplicates combined under
-the semiring, a (SENTINEL, SENTINEL, zero) tail) plus ``nnz`` — for
-operands of any length, at the summed input length, up to
-``MAX_SORTED_OPERANDS`` sorted operands: the block's ``RANK_CHUNK``-entry
-chunks plus the runs (a block of at most 1,048,576 entries; each chunk
-past the first adds a merge pass over the growing prefix, so a block's cost
-rises with the square of its chunks).  On the card the block is rank-sorted
-across CTAs, then merge-path CTAs merge, combine and compact in one pass
-with a decoupled look-back (two launches at k = 1; the source note in
-``csrc/hier_merge.cu`` has the design).
+the semiring, a (SENTINEL, SENTINEL, zero) tail) plus ``nnz`` — for values
+of float32, int32, float16 or bfloat16 (the TPU kernels take any dtype and
+combine in it; a 16-bit add rounds to 16 bits) and operands of any length,
+at the summed input length, up to ``MAX_SORTED_OPERANDS`` sorted operands:
+the block's ``RANK_CHUNK``-entry chunks plus the runs (a block of at most
+1,048,576 entries; each chunk past the first adds a merge pass over the
+growing prefix, so a block's cost rises with the square of its chunks).
+On the card the block is rank-sorted across CTAs, then merge-path CTAs
+merge, combine and compact in one pass with a decoupled look-back (two
+launches at k = 1; the source note in ``csrc/hier_merge.cu`` has the
+design).
 
 Beside each wrapper is its plain PyTorch version (``merge_plain``,
 ``merge_multi_plain``), which pads to powers of two with sentinels and runs
@@ -34,7 +36,6 @@ in ``kernels.registry.LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-import struct
 
 import torch
 
@@ -54,6 +55,10 @@ _COMBINE = {
 
 # the combine the CUDA side templates on: 0 add, 1 max, 2 min
 _SR_KIND = {"plus.times": 0, "max.plus": 1, "max.min": 1, "min.plus": 2}
+
+# the value types the CUDA side takes, by its code for them
+_VTYPE = {torch.float32: 0, torch.int32: 1, torch.float16: 2,
+          torch.bfloat16: 3}
 
 
 # ------------------------------------------------------------- plain path ---
@@ -200,7 +205,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _BOUND = {}
 _SCRATCH_WORDS = {}   # (block length, total, sorted operands) -> int32 words
-_ZERO_BITS = {}       # (semiring, value dtype) -> the zero's 32 bits
+_ZERO_BITS = {}       # (semiring, value dtype) -> the zero's bits
 
 
 def _lib():
@@ -225,14 +230,14 @@ def _lib():
 def _check_operands(srcs, what: str, block_unsorted: bool) -> int:
     """The checks a launch needs, before anything is built or launched:
     every operand a contiguous 1-D tensor on the first one's device, keys
-    int32, values float32 or int32 and one type, hi/lo/val of a run of one
-    length, the total at most ``MAX_ENTRIES``, at most
-    ``MAX_SORTED_OPERANDS`` sorted operands (the unsorted block's chunks
+    int32, values of one type among float32, int32, float16 and bfloat16,
+    hi/lo/val of a run of one length, the total at most ``MAX_ENTRIES``, at
+    most ``MAX_SORTED_OPERANDS`` sorted operands (the unsorted block's chunks
     of ``RANK_CHUNK`` plus the non-empty runs).  Returns the total."""
     dev, vdtype = srcs[0][0].device, srcs[0][2].dtype
-    if vdtype not in (torch.float32, torch.int32):
-        raise TypeError(f"{what}: values must be float32 or int32, "
-                        f"got {vdtype}")
+    if vdtype not in _VTYPE:
+        raise TypeError(f"{what}: values must be float32, int32, float16 "
+                        f"or bfloat16, got {vdtype}")
     total = 0
     for hi, lo, val in srcs:
         for x, dt in ((hi, torch.int32), (lo, torch.int32), (val, vdtype)):
@@ -256,11 +261,14 @@ def _check_operands(srcs, what: str, block_unsorted: bool) -> int:
 
 
 def _zero_bits(sr_name: str, vdtype) -> int:
+    """The semiring zero's bit pattern in ``vdtype`` as a signed int (the
+    C side keeps its low 32 or 16 bits): -inf / +inf for the float types,
+    the integer min / max for int32."""
     key = (sr_name, vdtype)
     if key not in _ZERO_BITS:
-        zero = _zero_for(sr_name, vdtype)
-        _ZERO_BITS[key] = int(zero) if vdtype == torch.int32 else \
-            struct.unpack("<i", struct.pack("<f", zero))[0]
+        zero = torch.tensor([_zero_for(sr_name, vdtype)], dtype=vdtype)
+        word = torch.int32 if zero.element_size() == 4 else torch.int16
+        _ZERO_BITS[key] = int(zero.view(word)[0])
     return _ZERO_BITS[key]
 
 
@@ -274,7 +282,8 @@ def _scratch_words(lib, block_len: int, total: int, n_sorted: int) -> int:
 def _launch(what: str, counter: str, srcs, block_unsorted: bool,
             sr_name: str):
     """One ctypes call on the current stream: the outputs and nnz are one
-    allocation, returned as views; the kernels' scratch (look-back state,
+    allocation (hi, lo, nnz as int32 words, then the values in their own
+    width), returned as views; the kernels' scratch (look-back state,
     sorted block, fold buffers) is a second one, handed back to the caching
     allocator on return (stream-ordered, so only work enqueued after this
     call reuses it)."""
@@ -283,11 +292,12 @@ def _launch(what: str, counter: str, srcs, block_unsorted: bool,
     lib = _lib()
     block_len = srcs[0][0].shape[0] if block_unsorted else 0
     n_sorted = len(srcs) - 1 if block_unsorted else len(srcs)
-    out = torch.empty(3 * n + 1, dtype=torch.int32, device=dev)
+    val_words = -(-n * torch.empty((), dtype=vdtype).element_size() // 4)
+    out = torch.empty(2 * n + 1 + val_words, dtype=torch.int32, device=dev)
     scratch = torch.empty(_scratch_words(lib, block_len, n, n_sorted),
                           dtype=torch.int32, device=dev)
     args = (out.data_ptr(), scratch.data_ptr(), _SR_KIND[sr_name],
-            int(vdtype == torch.int32), _zero_bits(sr_name, vdtype),
+            _VTYPE[vdtype], _zero_bits(sr_name, vdtype),
             torch.cuda.current_stream(dev).cuda_stream)
     if block_unsorted:
         k = len(srcs)
@@ -308,8 +318,8 @@ def _launch(what: str, counter: str, srcs, block_unsorted: bool,
         raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
                            f"({lib.hm_error_string(err).decode()})")
     registry.count(counter)
-    return (out[:n], out[n:2 * n], out[2 * n:3 * n].view(vdtype),
-            out[3 * n:])
+    return (out[:n], out[n:2 * n], out[2 * n + 1:].view(vdtype)[:n],
+            out[2 * n:2 * n + 1])
 
 
 def _route(x) -> str:

@@ -33,14 +33,13 @@ def main():
         raise SystemExit("profile_ingest measures the card: --device cuda")
     sig = ingest.signature(args)
     knobs = ingest.ingest_knobs(sig)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
     states = distributed.create_instances(args.instances, sig.cuts,
                                           args.block_size, device=device)
     blocks = max(args.blocks // args.rounds, 1)
-    batches = [instance_streams(gen, args.instances, blocks,
-                                args.block_size, args.scale)
-               for _ in range(2)]
+    batches = [instance_streams(ingest.round_generator(args.seed, r, device),
+                                args.instances, blocks, args.block_size,
+                                args.scale)
+               for r in range(2)]
     states, _ = stream.ingest_instances(states, *batches[0], **knobs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

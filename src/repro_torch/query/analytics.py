@@ -84,14 +84,21 @@ def _order_key(score: Tensor) -> Tensor:
     """int64 key whose order is the total order of ``score`` (float32 by
     its bits, so -0.0 < 0.0 as in ``lax.top_k``; int32 as is) in the high
     word and the complemented index in the low word: among equal scores
-    the lower index ranks first, as ``lax.top_k`` returns them."""
+    the lower index ranks first, as ``lax.top_k`` returns them.  float16
+    and bfloat16 rank by their exact float32 values, 8- and 16-bit
+    integers by their int32 values: both widenings preserve order."""
+    if score.dtype in (torch.float16, torch.bfloat16):
+        score = score.to(torch.float32)
+    elif score.dtype in (torch.int8, torch.int16, torch.uint8):
+        score = score.to(torch.int32)
     if score.dtype == torch.float32:
         bits = score.view(torch.int32)
         bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)
     elif score.dtype == torch.int32:
         bits = score
     else:
-        raise TypeError(f"top_k_rows ranks float32 or int32 totals, got "
+        raise TypeError(f"top_k_rows ranks float32, float16, bfloat16 or "
+                        f"integer totals of at most 32 bits, got "
                         f"{score.dtype}")
     n = score.shape[-1]
     rank = (n - 1) - torch.arange(n, device=score.device)

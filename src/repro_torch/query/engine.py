@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import stages
+from repro_torch.analysis import contracts
 from repro_torch.core import assoc
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core.assoc import SENTINEL, AssocSegment
@@ -188,15 +189,27 @@ def point_lookup(h, rows, cols, sr: Semiring = sr_mod.PLUS_TIMES,
     a batch); returns the semiring value of each key combined across every
     layer (exactly what ``assoc.lookup(query_all(h), r, c)`` returns,
     without the merge): [Q], or [I, Q] for a batch.
+
+    Under ``REPRO_CHECK=1`` the hierarchy is checked before serving —
+    layer 0 on the raw-buffer contract only, since the engine never trusts
+    its order — and the layer-0 canonicalization is deep-checked.
     """
     sig = stages.signature_for_state(h, sr=sr, use_kernel=use_kernel,
                                      l0_mode=l0_mode)
     sr = sr_mod.get(sig.sr)
+    return contracts.checked(
+        "query.engine.point_lookup", h, sr,
+        lambda: _point_lookup(h, rows, cols, sr, use_kernel, sig.l0_mode),
+        l0_sorted=False)
+
+
+def _point_lookup(h, rows, cols, sr: Semiring, use_kernel: bool,
+                  l0_mode) -> Tensor:
     rows, cols = _queries(h, rows, cols)
     lead = _lead(h)
     rows, cols = _per_instance(rows, lead), _per_instance(cols, lead)
     runs, raw = _l0_runs(h, rows.shape[-1], sr, use_kernel,
-                         sig.l0_mode or "auto")
+                         l0_mode or "auto")
     zero = sr_mod.integer_zero(sr, h.layers[0].dtype)
     out = torch.full(rows.shape, zero, dtype=h.layers[0].dtype,
                      device=h.device)

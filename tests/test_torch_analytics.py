@@ -266,3 +266,62 @@ def test_top_k_rows_negative_totals_and_signed_zero():
         np.testing.assert_array_equal(np.signbit(totals.numpy()),
                                       np.signbit(np.asarray(jt)))
         tp.assert_vals(totals.numpy(), np.asarray(jt), exact=True)
+
+
+def _f32(x) -> np.ndarray:
+    """A JAX array or port tensor of any float width as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("sr_name", ["plus.times", "max.plus", "min.plus",
+                                     "max.min"])
+def test_top_k_rows_16bit_totals_match_reference(sr_name, dtype):
+    """bf16 and f16 hierarchies (one instance and a fleet of 2) rank their
+    totals exactly as ``lax.top_k`` does, ties in ascending row order;
+    ``run_service`` with analytics on, which ranked them in every batch,
+    ends in the reference service's state."""
+    from repro.core import distributed as jdist
+    from repro.query import service as jservice
+    from repro_torch.query import service as tservice
+    rows, cols, vals = tp.stream(0, (4, 32), 40)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    sr_j, sr_t = jsr.get(sr_name), tanalytics.sr_mod.get(sr_name)
+    cuts = (48, 96, 512)
+    jh, _ = jstream.ingest(jhier.create(cuts, 32, dtype=jdt, sr=sr_j),
+                           *map(jnp.asarray, (rows, cols, vals)), sr=sr_j)
+    th, _ = tstream.ingest(thier.create(cuts, 32, dtype=tdt, sr=sr_t,
+                                        device="cpu"),
+                           *map(torch.from_numpy, (rows, cols, vals)),
+                           sr=sr_t)
+    for k in (5, 40):
+        totals, ids = tanalytics.top_k_rows(th, 40, k, sr_t)
+        jt, ji = janalytics.top_k_rows(jh, 40, k, sr_j)
+        assert totals.dtype == tdt and ids.dtype == torch.int32
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(_f32(totals), _f32(jt))
+    fleet = (np.stack([rows, rows[::-1]]), np.stack([cols, cols[::-1]]),
+             np.stack([vals, vals[::-1]]))
+    q = np.arange(24, dtype=np.int32)
+    (jr, jc, jv, jq), (tr, tc, tv, tq) = tp.both(*fleet, q)
+    kw = dict(rounds=2, analytics_num_rows=40, analytics_k=5, sr=sr_name)
+    jfinal, _ = jservice.run_service(
+        jdist.create_instances(2, cuts, 32, dtype=jdt, sr=sr_j), jr, jc, jv,
+        jq, jq, **{**kw, "sr": sr_j})
+    tfinal, stats = tservice.run_service(
+        tdist.create_instances(2, cuts, 32, dtype=tdt, sr=sr_t,
+                               device="cpu"), tr, tc, tv, tq, tq,
+        **{**kw, "sr": sr_t})
+    assert stats["analytics_wall_s"] > 0
+    for tl, jl in zip(tfinal.layers, jfinal.layers):
+        for f in ("hi", "lo", "nnz"):
+            np.testing.assert_array_equal(getattr(tl, f).numpy(),
+                                          np.asarray(getattr(jl, f)))
+        np.testing.assert_array_equal(_f32(tl.val), _f32(jl.val))
+    totals, ids = tservice.make_analytics_fn(40, 5, sr_t)(tfinal)
+    jt, ji = jax.vmap(lambda h: janalytics.top_k_rows(h, 40, 5, sr_j))(
+        jfinal)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(_f32(totals), _f32(jt))

@@ -94,3 +94,23 @@ def test_service_phase_on_cpu():
     assert res["updates_per_s"] > 0 and res["queries_per_s"] > 0
     assert res["narrow_max_truncated"] > 0
     assert res["latency_p50_ms"] <= res["latency_max_ms"]
+
+
+def test_fault_phase_on_cpu(tmp_path):
+    """Phase 10 at smoke size: run A checkpoints every 2 of 8 rounds, the
+    checkpoints of rounds 6 and 8 go, run B resumes at round 4 and ends
+    equal to A; A's state restores on the CPU; 4 instances shrink to 2
+    and grow to 5 keeping every key's total; a bf16 fleet's kernel route
+    equals its sort route and ranks as float32; the checked ingest passes
+    and the corrupted checkpoint is refused by name."""
+    kw = dict(block_size=32, cuts="64,256,1024", scale=10, device="cpu")
+    big = chip_smoke.ingest_args(instances=4, blocks=32, rounds=8,
+                                 ckpt_every=2, **kw)
+    small = chip_smoke.ingest_args(instances=2, blocks=8, rounds=4, **kw)
+    res = chip_smoke.fault_phase(torch, big, small, str(tmp_path))
+    assert res["resumed_at"] == 4 and res["rounds_run"] == 4
+    assert res["counter"] == 4 * 32 * 32
+    assert res["resumed_merge_multi"] == 0       # plain versions on the CPU
+    assert res["checkpoint_mib"] > 0
+    assert "sentinel-tail violation in restore step_1 layer 1" \
+        in res["refused"]

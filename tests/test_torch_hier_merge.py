@@ -393,3 +393,102 @@ def test_cuda_operand_limit_checked_before_launch(block_len, run_lens, ok):
                     "plus.times")
     assert "lib" not in thm._BOUND
     assert treg.launches()["hier_merge.merge_multi"] == 0
+
+
+# ------------------------------------------------- 16-bit values ---------
+
+RTOL16 = {"bfloat16": 1e-2, "float16": 2e-3}   # the order of 16-bit adds
+
+
+def _assert_out16(got, want, dtype, exact):
+    """Keys and nnz exact; 16-bit values in float32 exactly, or within the
+    dtype's rtol (atol the same) where the adds may round in another
+    order."""
+    for i in (0, 1, 3):
+        np.testing.assert_array_equal(np.asarray(got[i]), np.asarray(want[i]))
+    assert got[2].dtype == getattr(torch, dtype)
+    g = got[2].to(torch.float32).numpy()
+    w = np.asarray(jnp.asarray(want[2]).astype(jnp.float32))
+    fin = np.isfinite(w)
+    np.testing.assert_array_equal(g[~fin], w[~fin])
+    if exact:
+        np.testing.assert_array_equal(g, w)
+    else:
+        np.testing.assert_allclose(g[fin], w[fin], rtol=RTOL16[dtype],
+                                   atol=RTOL16[dtype])
+
+
+def _np_operands16(seed, sr_name, integer, block, run_caps):
+    """float32 numpy operands (an unsorted block, canonical runs) whose
+    values are exact in 16 bits when ``integer``: at most 100 in
+    magnitude, few duplicates, so every partial sum stays below 256."""
+    rng = np.random.default_rng(seed)
+    dt = np.int32 if integer else np.float32
+    b = _np_block(rng, block, 40, dt)
+    maker_sr = "max.plus" if sr_name == "max.min" else sr_name
+    runs = [treg._canonical_segment(rng, c, 40, dt, maker_sr)
+            for c in run_caps]
+    zero = treg._np_zero(sr_name, np.dtype(np.float32))
+
+    def f32(seg):
+        hi, lo, v = seg
+        v = np.where(hi == tref.SENTINEL, zero, v.astype(np.float32))
+        return hi, lo, v.astype(np.float32)
+    return f32(b), [f32(r) for r in runs]
+
+
+@pytest.mark.parametrize("sr_name", ["plus.times", "max.plus", "min.plus",
+                                     "max.min"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("kind", ["merge_multi", "merge"])
+def test_plain_16bit_matches_pallas_interpret(kind, dtype, sr_name):
+    """The plain versions carry float16 and bfloat16 values, combining in
+    the value dtype as the Pallas kernels do (interpret mode, the same
+    operands): integer-valued payloads exactly, normal ones within the
+    dtype's rtol; the result keeps the operands' dtype."""
+    from repro.kernels.hier_merge import hier_merge as jhm
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    for integer in (True, False):
+        if kind == "merge_multi":
+            b, runs = _np_operands16(3, sr_name, integer, 32, (96,))
+            srcs = [b] + runs
+        else:
+            _, srcs = _np_operands16(4, sr_name, integer, 0, (48, 80))
+        jops_ = [tuple(jnp.asarray(x) for x in s[:2]) +
+                 (jnp.asarray(s[2]).astype(jdt),) for s in srcs]
+        tops_ = [tuple(torch.from_numpy(x) for x in s[:2]) +
+                 (torch.from_numpy(s[2]).to(tdt),) for s in srcs]
+        if kind == "merge_multi":
+            want = jhm.merge_multi_pallas(jops_[0], jops_[1:],
+                                          sr_name=sr_name, interpret=True)
+            got = thm.merge_multi_plain(tops_[0], tops_[1:], sr_name=sr_name)
+        else:
+            want = jhm.merge_pallas(*jops_[0], *jops_[1], sr_name=sr_name,
+                                    interpret=True)
+            got = thm.merge_plain(*tops_[0], *tops_[1], sr_name=sr_name)
+        _assert_out16(got, want, dtype, integer)
+        assert int(got[3][0]) > 0
+
+
+@pytest.mark.parametrize("vdtype", [torch.float16, torch.bfloat16,
+                                    torch.float32, torch.int32])
+def test_cuda_operand_check_takes_16bit_values(vdtype):
+    """The CUDA route's operand check takes float16 and bfloat16 values
+    (the kernels carry them) as it takes float32 and int32, and still
+    refuses float64 and mixed value types, before anything is built."""
+    def op(n, dt):
+        return tuple(torch.empty(n, dtype=t, device="meta")
+                     for t in (torch.int32, torch.int32, dt))
+
+    srcs = [op(40, vdtype), op(24, vdtype)]
+    assert thm._check_operands(srcs, "merge_multi_cuda", True) == 64
+    assert thm._check_operands(srcs, "merge_cuda", False) == 64
+    thm._BOUND.pop("lib", None)
+    for bad in ([op(40, torch.float64), op(24, torch.float64)],
+                [op(40, vdtype), op(24, torch.float64
+                                    if vdtype != torch.float64 else
+                                    torch.float32)]):
+        with pytest.raises((TypeError, ValueError)):
+            thm._launch("merge_multi_cuda", "hier_merge.merge_multi", bad,
+                        True, "plus.times")
+    assert "lib" not in thm._BOUND

@@ -133,3 +133,42 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_fault_tolerance_modules_import_no_jax(monkeypatch, tmp_path):
+    """The checkpoint, contracts and runtime modules import neither JAX nor
+    anything of the JAX package (each file, and in a fresh process);
+    restoring onto the card, and resuming the ingest CLI, raise without
+    one."""
+    names = ("analysis/__init__.py", "analysis/contracts.py",
+             "checkpoint/__init__.py", "checkpoint/ckpt.py",
+             "runtime/__init__.py", "runtime/elastic.py",
+             "runtime/straggler.py")
+    for name in names:
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "import repro_torch.analysis.contracts, repro_torch.checkpoint\n"
+            "import repro_torch.runtime\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core import distributed
+    from repro_torch.launch import ingest
+    fleet = distributed.create_instances(2, (64, 256), 32, device="cpu")
+    save(str(tmp_path), 1, fleet)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore(str(tmp_path), 1, fleet, device="cuda")
+    args = ingest.parser().parse_args(["--instances", "2", "--blocks", "2",
+                                       "--rounds", "1", "--ckpt-dir",
+                                       str(tmp_path), "--resume"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest.run(args)
+    assert restore(str(tmp_path), 1, fleet, device="cpu").device.type \
+        == "cpu"
