@@ -78,12 +78,40 @@ caught and passed over):
    sort route, with ``top_k_rows`` equal to the float32 ranking of its
    totals; and under ``REPRO_CHECK=1`` a checked kernel-route ingest of 8
    instances that passes, and a checkpoint with a corrupted layer-1 tail
-   that ``restore`` refuses, naming the invariant.
+   that ``restore`` refuses, naming the invariant;
+11. training at full width (``train_phase``): DCN-v2 (``dcn_v2.config()``,
+   the 6.04 GB table, batch 65,536 = ``RECSYS_SHAPES["train_batch"]``)
+   through ``launch/train.run_with_state``, dense for 4 steps and then
+   ``--hier-embed`` for 4 (median step ms after the first, examples/s,
+   peak GiB, host reads of a device flag per step, one step under
+   ``device_profile``), then one ``make_train_step_hier`` step called
+   directly with lr 0, embed_lr 1 and a drain every step, whose table
+   equals the table minus the direct scatter of the embedding gradient
+   (rtol 1e-4, atol 1e-5); GraphCast (``graphcast.config()``, remat) on
+   phase 8's multimesh, regress task, 3 steps with the drawn processor
+   weights scaled by ``GC_LAYER_SCALE`` (at its own init, whose loss and
+   gradient norm are recorded first, the norm overflows float32), and its
+   gradients with remat on and off at 2 layers, recorded with the default
+   scatter-adds and equal within a max relative error of 1e-5 with
+   ``torch.use_deterministic_algorithms``; GAT-Cora
+   on phase 3's ``full_graph_sm`` graph, 5 steps; one GAT step on a
+   ``minibatch_lg`` node flow (1,024 seeds, fanouts 15 and 10: 169,984
+   nodes, 168,960 edges, ``seed_count`` 1,024) sampled from an R-MAT graph
+   of 232,965 nodes and 114,615,892 edges with 602 features.  Each: finite
+   losses and gnorms, a non-zero gradient for every parameter, and
+   ``use_kernel=True`` refused with ``NotImplementedError`` (the kernels
+   have no backward, as in the reference).  Then the train CLI at smoke
+   size (``dcn-v2 --hier-embed``, ``gat-cora``) with ``--ckpt-every 4
+   --fail-at-step 6``, each final loss equal to the uninterrupted run's
+   within rtol 1e-5; and one step of each family on the card equal to the
+   same step on the CPU (losses and gnorms within rtol 1e-4, parameters
+   within rtol 1e-4 plus a tenth of one AdamW step).
 
 Phase 3 also holds both merges with float16 and bfloat16 values against
 their plain versions under the four semirings (keys and nnz exact,
 integer-valued payloads exact, normal ones within rtol 1e-2 for bf16 and
-2e-3 for f16) and profiles them at the float32 rows' shapes.  It also
+2e-3 for f16) and profiles them at the float32 rows' shapes, with the sort
+route timed on the same 16-bit operands.  It also
 holds the ``embedding_bag`` and ``segment_agg`` kernels against their
 plain versions (and oracles) on their registry jobs, then
 times kernel, plain version and the PyTorch library call computing the
@@ -112,6 +140,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -128,6 +158,7 @@ TOL16 = {"bfloat16": 1e-2, "float16": 2e-3}
 SEMIRINGS = ("plus.times", "max.plus", "min.plus", "max.min")
 DENSE_TOL = 2e-5               # registry embedding_bag / segment_agg rtol
 SERVE_P99, SERVE_BULK = 512, 262_144          # RECSYS_SHAPES batches
+DCN_TRAIN_BATCH = 65_536                      # RECSYS_SHAPES["train_batch"]
 N_CANDIDATES = 1_000_192       # retrieval_cand's 1M padded to 256
 VOCAB = 40_000_000             # the largest field: every field's ids span it
 
@@ -440,18 +471,20 @@ def kernel_phase(torch, registry, hm, assoc, sr_mod):
                 sort_route_ms=sort_ms, bound_ms=bound_ms,
                 device_us=prof["device_us"],
                 kernels_per_call=prof["kernels_per_call"])
-    merge16_checks(torch, hm, canon, block, compare, results)
+    merge16_checks(torch, hm, canon, block, compare, results, assoc, sr_mod)
     return results
 
 
-def merge16_checks(torch, hm, canon, block, compare, results):
+def merge16_checks(torch, hm, canon, block, compare, results, assoc,
+                   sr_mod):
     """Both merges with float16 and bfloat16 values, under the four
     semirings, against their plain versions on the card: keys and nnz
     exact, integer-valued payloads (|v| <= 200, exact in 16 bits) exact,
     normal payloads within TOL16; then each kernel's device µs, kernels
     per call and host-paced ms at the main path's shapes (plus.times,
     normal payloads), beside the float32 row, with the byte bound at
-    2-byte values."""
+    2-byte values, and the sort route's ms on the same operands (held
+    against the kernel within TOL16)."""
     import numpy as np
     from repro_torch.launch.profile_merge import merge_profile
 
@@ -503,22 +536,36 @@ def merge16_checks(torch, hm, canon, block, compare, results):
                     rec["max_abs_err"] = max(rec["max_abs_err"], err)
                     if sr_name != "plus.times" or integer:
                         continue
+                    n, sr = sum(shape), sr_mod.get(sr_name)
+
+                    def sort_route(ops=ops, sr=sr, n=n):
+                        return assoc._canonicalize(
+                            torch.cat([o[0] for o in ops]),
+                            torch.cat([o[1] for o in ops]),
+                            torch.cat([o[2] for o in ops]), n, sr)
+
+                    seg, _ = sort_route()
+                    compare(got, (seg.hi, seg.lo, seg.val,
+                                  seg.nnz.reshape(1)), False,
+                            f"{label} vs sort route", rtol=rtol, atol=rtol)
                     prof = merge_profile(torch, kern)
                     ms, plain_ms = time_ms(kern), time_ms(plain, 5, 1)
+                    sort_ms = time_ms(sort_route)
                     bound_ms, bound_by = merge_bound(list(shape),
                                                      first_sorted,
                                                      val_bytes=2)
                     rec.update(shape="+".join(map(str, shape)), ms=ms,
-                               plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by,
+                               plain_ms=plain_ms, sort_route_ms=sort_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
                                device_us=prof["device_us"],
                                kernels_per_call=prof["kernels_per_call"])
                     print(f"{label} {rec['shape']}: nnz {int(got[3][0])} "
                           f"kernel {ms:.4f} ms, device_us "
                           f"{prof['device_us']:.2f}, kernels_per_call "
                           f"{prof['kernels_per_call']:g}, plain "
-                          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-                          f"({bound_by}); {prof['kernels']}", flush=True)
+                          f"{plain_ms:.4f} ms, sort route {sort_ms:.4f} "
+                          f"ms, bound {bound_ms:.6f} ms ({bound_by}); "
+                          f"{prof['kernels']}", flush=True)
             print(f"{kname} {dtype}: == plain under the four semirings "
                   f"(integer payloads exact, normal within rtol {rtol}; "
                   f"max_abs_err {rec['max_abs_err']:.3g})", flush=True)
@@ -1475,6 +1522,449 @@ def fault_phase(torch, args, small, tmp: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 11 --
+
+TRAIN_RTOL = 1e-5          # resume == uninterrupted; remat on == off
+XDEV_RTOL = 1e-4           # one step on the card == the same step on the CPU
+
+
+def max_rel_err(a, b) -> float:
+    """max |a - b| over max |b| (phase 8's measure)."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp(min=1e-30))
+
+
+def grad_coverage(torch, loss_fn, *trees) -> dict:
+    """Gradients of ``loss_fn(*trees)`` for every leaf of ``trees``: each
+    finite and non-zero somewhere (a dropped gradient would be all
+    zeros).  Returns the loss and the number of leaves checked."""
+    from repro_torch.models import common
+    (loss, _), grads = common.value_and_grad(loss_fn, *trees)
+    n = 0
+    for g in grads:
+        for leaf in common.tree_leaves(g):
+            n += 1
+            if not bool(torch.isfinite(leaf).all()) or \
+                    not bool((leaf != 0).any()):
+                raise AssertionError(f"a gradient of shape "
+                                     f"{tuple(leaf.shape)} is zero or not "
+                                     f"finite")
+    del grads
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError("loss not finite")
+    return dict(loss=float(loss), leaves=n)
+
+
+def refuses_kernel_route(fn, what: str) -> None:
+    """``fn()`` must raise NotImplementedError: a kernel route has no
+    backward, as in the reference."""
+    try:
+        fn()
+    except NotImplementedError:
+        return
+    raise AssertionError(f"{what}: the kernel route trained without a "
+                         f"backward")
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(torch, device):
+    if torch.device(device).type == "cuda":
+        return torch.cuda.max_memory_allocated() / 2**30
+    return None
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def dcn_train_phase(torch, device, *, smoke: bool, batch: int, steps: int,
+                    vocab: int):
+    """DCN-v2 training through ``launch/train.run_with_state``: the dense
+    path, then ``--hier-embed``; per path the median step ms after the
+    first step, examples/s, peak GiB, host reads per step, a gradient of
+    every leaf non-zero and finite, the kernel route refused, and on the
+    card one step under ``device_profile``.  Then the hier path's exact
+    mass check, called directly: one step with lr 0, embed_lr 1 and a drain
+    every step moves the table by minus the direct scatter of the
+    embedding gradient (rtol 1e-4, atol 1e-5)."""
+    from repro_torch.configs import registry as cfgs
+    from repro_torch.core import vassoc
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.models import common, dcn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = (cfgs.get_smoke_config if smoke else cfgs.get_config)("dcn-v2")
+    res = {}
+    for mode in ("dense", "hier"):
+        _peak_reset(torch, device)
+        args = train.make_args(arch="dcn-v2", smoke=smoke, batch=batch,
+                               steps=steps, hier_embed=mode == "hier",
+                               device=device, log_every=0)
+        syncs = vassoc.HOST_SYNCS["count"]
+        out, state = train.run_with_state(args)
+        syncs = (vassoc.HOST_SYNCS["count"] - syncs) / steps
+        if len(out["losses"]) != steps or not all(
+                math.isfinite(x) for x in out["losses"] + out["gnorms"]):
+            raise AssertionError(f"dcn {mode}: losses or gnorms not finite")
+        params = state["params"]
+        b = synthetic.recsys_batch(train.step_seed(0, steps), batch,
+                                   cfg.n_dense, cfg.n_sparse,
+                                   min(cfg.table_sizes), device=device)
+        ms = _median(out["step_s"][1:]) * 1e3
+        rec = dict(step_ms=ms, examples_per_s=batch / ms * 1e3,
+                   peak_gib=_peak_gib(torch, device),
+                   host_reads_per_step=syncs, losses=out["losses"],
+                   gnorms=out["gnorms"])
+        if mode == "dense":
+            rec["grads"] = grad_coverage(
+                torch, lambda p: (dcn.bce(dcn.forward(p, b, cfg),
+                                          b["labels"]), {}), params)
+            kcfg = dataclasses.replace(cfg, use_kernel=True)
+            refuses_kernel_route(lambda: dcn.make_train_step(
+                kcfg, AdamWConfig())(params, state["opt"], b), "dcn dense")
+            step = dcn.make_train_step(cfg, AdamWConfig(lr=args.lr))
+            run_step = lambda: step(params, state["opt"], b)
+        else:
+            gids = dcn.global_ids(b["sparse"], cfg)
+            with torch.no_grad():
+                e = torch.sum(params.table[gids.long()], dim=2).reshape(
+                    batch, -1)
+
+            def loss_e(rest, e):
+                h = dcn.interact(params, b["dense"], e, cfg)
+                return dcn.bce((h @ params.logit_w)[:, 0] + params.logit_b,
+                               b["labels"]), {}
+
+            rec["grads"] = grad_coverage(torch, loss_e,
+                                         dcn.rest_params(params), e)
+            step = dcn.make_train_step_hier(cfg, AdamWConfig(lr=args.lr))
+            run_step = lambda: step(params, state["opt"], state["hier"], b)
+        if torch.device(device).type == "cuda":
+            rec["profile"] = device_profile(torch, run_step)
+        print(f"dcn-v2 train {mode}: " + json.dumps(rec), flush=True)
+        res[mode] = rec
+        del state, params, run_step, step, b
+
+    # the hier path's exact mass, at the same width, called directly
+    _peak_reset(torch, device)
+    params = dcn.init(3, cfg, device=device)
+    table0 = params.table.detach().clone()
+    b = synthetic.recsys_batch(21, batch, cfg.n_dense, cfg.n_sparse, vocab,
+                               device=device)
+    step = dcn.make_train_step_hier(cfg, AdamWConfig(lr=0.0), embed_lr=1.0,
+                                    drain_every=1)
+    rest = dcn.rest_params(params)
+    p2, _, h2, m = step(params, adamw_init(rest),
+                        dcn.hier_embed_init(cfg, batch, (1024, 8192, 65536),
+                                            device=device), b)
+    if not bool(m["drained"]) or int(m["pending_nnz"]) != 0:
+        raise AssertionError("hier exact-mass step did not drain")
+    gids = dcn.global_ids(b["sparse"], cfg).reshape(-1).long()
+    with torch.no_grad():
+        e = dcn.embed_lookup(table0, b["sparse"], cfg)
+
+    def loss_e(e):
+        h = dcn.interact(params, b["dense"], e, cfg)
+        return dcn.bce((h @ params.logit_w)[:, 0] + params.logit_b,
+                       b["labels"]), {}
+
+    _, (g_e,) = common.value_and_grad(loss_e, e)
+    direct = table0.index_add_(0, gids, -g_e.reshape(-1, cfg.embed_dim))
+    step_peak = _peak_gib(torch, device)
+    err = 0.0
+    for lo in range(0, direct.shape[0], 1 << 23):   # no 6 GB temporaries
+        got, want = p2.table[lo:lo + (1 << 23)], direct[lo:lo + (1 << 23)]
+        diff = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"hier exact mass: table rows from {lo} "
+                                 f"differ by {diff}")
+        err = max(err, diff)
+    res["hier_exact"] = dict(
+        unique_rows=int(torch.unique(gids).numel()),
+        block_rows=int(gids.numel()), max_abs_err=err, peak_gib=step_peak)
+    print("dcn-v2 hier exact mass: " + json.dumps(res["hier_exact"]),
+          flush=True)
+    return res
+
+
+def gnn_train_steps(torch, cfg, graph, task, d_feat, n_out, steps,
+                    seed_count=0, device="cuda", profile=False,
+                    layer_scale=1.0):
+    """``steps`` steps of ``gnn.make_train_step``; returns the numbers
+    (median step ms after the first, peak GiB, losses, gnorms, gradient
+    coverage, the kernel route refused).  ``layer_scale`` multiplies the
+    drawn weights of the processor layers (``layers.*``)."""
+    from repro_torch.models import gnn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    _peak_reset(torch, device)
+    params = gnn.init(0, cfg, d_feat, n_out, device=device)
+    if layer_scale != 1.0:
+        with torch.no_grad():
+            for p in params.layers.parameters():
+                p.mul_(layer_scale)
+    opt = adamw_init(params)
+    step = gnn.make_train_step(cfg, AdamWConfig(lr=1e-4), task, seed_count)
+    losses, gnorms, secs = [], [], []
+    for _ in range(steps):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, graph)
+        _sync(torch, device)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{cfg.name}: losses or gnorms not finite")
+    rec = dict(step_ms=_median(secs[1:] or secs) * 1e3,
+               peak_gib=_peak_gib(torch, device), losses=losses,
+               gnorms=gnorms, layer_scale=layer_scale)
+    loss_fn = gnn.make_loss_fn(cfg, task, seed_count)
+    rec["grads"] = grad_coverage(torch, lambda p: loss_fn(p, graph), params)
+    kcfg = dataclasses.replace(cfg, use_kernel=True)
+    refuses_kernel_route(lambda: gnn.make_train_step(
+        kcfg, AdamWConfig(), task, seed_count)(params, opt, graph),
+        f"{cfg.name}")
+    if profile and torch.device(device).type == "cuda":
+        rec["profile"] = device_profile(
+            torch, lambda: step(params, opt, graph))
+    return rec
+
+
+# GraphCast's processor at the reference's init (dense_init, no
+# normalisation) grows its activations with depth: at 16 layers the sum of
+# squared gradients overflows float32 and gnorm is inf — the reference's
+# arithmetic, which the port computes (``init_gnorm`` records it each
+# run).  Phase 11 trains it with the drawn processor weights scaled by
+# this factor.
+GC_LAYER_SCALE = 0.5
+
+
+def init_gnorm(torch, cfg, graph, n, device):
+    """The regress loss and the global gradient norm at ``cfg``'s own
+    random init (recorded, not checked)."""
+    from repro_torch.models import common, gnn
+    from repro_torch.optim.adamw import clip_by_global_norm
+    params = gnn.init(0, cfg, n, n, device=device)
+    loss_fn = gnn.make_loss_fn(cfg, "regress")
+    (loss, _), (g,) = common.value_and_grad(lambda p: loss_fn(p, graph),
+                                            params)
+    gnorm = clip_by_global_norm(g, 1.0)[1]
+    return dict(loss=float(loss), gnorm=float(gnorm))
+
+
+def remat_check(torch, cfg, graph, task, d_feat, n_out, device):
+    """Gradients with remat on and off at ``cfg``'s width, first with
+    PyTorch's default (atomic, unordered) scatter-adds on the card, whose
+    recomputed forward may round differently from the first, recorded;
+    then with ``torch.use_deterministic_algorithms`` (ordered
+    scatter-adds), checked: equal within a max relative error of
+    TRAIN_RTOL per leaf."""
+    from repro_torch.models import common, gnn
+    params = gnn.init(1, cfg, d_feat, n_out, device=device)
+    out = {}
+    for det in (False, True):
+        grads, peaks = [], []
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            for remat in (True, False):
+                c = dataclasses.replace(cfg, remat=remat)
+                loss_fn = gnn.make_loss_fn(c, task)
+                _peak_reset(torch, device)
+                _, (g,) = common.value_and_grad(
+                    lambda p: loss_fn(p, graph), params)
+                peaks.append(_peak_gib(torch, device))
+                grads.append(common.tree_leaves(g))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        errs = [max_rel_err(a, b) for a, b in zip(*grads)]
+        key = "deterministic" if det else "default"
+        out[key] = dict(max_rel_err=max(errs),
+                        worst_leaf=errs.index(max(errs)),
+                        peak_gib_on_off=peaks)
+    if not out["deterministic"]["max_rel_err"] <= TRAIN_RTOL:
+        raise AssertionError(f"remat on vs off: {out}")
+    return out
+
+
+def flow_batch(torch, spec, seed, device):
+    """One sampled node flow of ``spec`` (a ``GNN_SHAPES`` sampled entry)
+    from an R-MAT graph of its size: the flow's nodes (seeds first) with
+    their features and labels, edges child -> parent."""
+    from repro_torch.data import graphs
+    t0 = time.perf_counter()
+    g = graphs.random_graph(seed, spec["n_nodes"], spec["n_edges"],
+                            spec["d_feat"], spec["n_classes"], device=device)
+    indptr, indices = graphs.to_csr(g["edge_src"], g["edge_dst"],
+                                    spec["n_nodes"])
+    del g["edge_src"], g["edge_dst"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    seeds = torch.randint(0, spec["n_nodes"], (spec["batch_nodes"],),
+                          generator=gen, device=device, dtype=torch.int32)
+    frontiers = graphs.sample_node_flow(gen, indptr, indices, seeds,
+                                        spec["fanouts"])
+    node_ids, src, dst = graphs.flow_subgraph(frontiers, spec["fanouts"])
+    want = graphs.flow_sizes(spec["batch_nodes"], spec["fanouts"])
+    if (node_ids.shape[0], src.shape[0]) != want:
+        raise AssertionError(f"flow sizes {(node_ids.shape[0], src.shape[0])}"
+                             f" != {want}")
+    ids = node_ids.long()
+    batch = dict(node_feat=g["node_feat"][ids], edge_src=src, edge_dst=dst,
+                 labels=g["labels"][ids])
+    _sync(torch, device)
+    info = dict(graph_nodes=spec["n_nodes"], graph_edges=spec["n_edges"],
+                flow_nodes=want[0], flow_edges=want[1],
+                build_s=time.perf_counter() - t0)
+    return batch, info
+
+
+def train_resume_checks(torch, device, tmp):
+    """The train CLI at smoke size, ``--ckpt-every 4 --fail-at-step 6``:
+    each final loss equals the uninterrupted run's within TRAIN_RTOL."""
+    from repro_torch.launch import train
+    out = {}
+    for arch, hier in (("dcn-v2", True), ("gat-cora", False)):
+        kw = dict(arch=arch, smoke=True, steps=10, batch=8, hier_embed=hier,
+                  device=device, log_every=0)
+        base = train.run(train.make_args(**kw))
+        failed = train.run(train.make_args(
+            ckpt_dir=os.path.join(tmp, arch), ckpt_every=4, fail_at_step=6,
+            **kw))
+        rel = abs(failed["final_loss"] - base["final_loss"]) / abs(
+            base["final_loss"])
+        if failed["failures"] != 1 or not rel <= TRAIN_RTOL:
+            raise AssertionError(f"{arch}: resumed final loss "
+                                 f"{failed['final_loss']} vs "
+                                 f"{base['final_loss']}")
+        out[arch] = dict(final_loss=base["final_loss"], resumed_rel_err=rel)
+    return out
+
+
+def _xdev_compare(torch, a, b, lr, what):
+    """A tree on the card against the same tree on the CPU: rtol XDEV_RTOL
+    plus a tenth of one AdamW step (see tests/test_torch_train.py)."""
+    from repro_torch.models import common
+    worst = 0.0
+    for x, y in zip(common.tree_leaves(a), common.tree_leaves(b)):
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if not torch.allclose(x, y, rtol=XDEV_RTOL, atol=lr / 10):
+            raise AssertionError(f"{what}: card vs CPU differ by "
+                                 f"{float((x - y).abs().max())}")
+        worst = max(worst, max_rel_err(x, y))
+    return worst
+
+
+def cross_device_checks(torch, card="cuda"):
+    """One step of each family on the card == the same step on the CPU, at
+    smoke size: losses and gnorms within rtol XDEV_RTOL, parameters as
+    ``_xdev_compare``.  (``card`` names the device held against the CPU.)"""
+    from repro_torch.configs import registry as cfgs
+    from repro_torch.data import graphs, synthetic
+    from repro_torch.models import dcn, gnn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    opt_cfg = AdamWConfig(lr=1e-3)
+    out = {}
+    cfg = cfgs.get_smoke_config("dcn-v2")
+    tree = dcn.params_to_numpy(dcn.init(0, cfg, device="cpu"))
+    batch = synthetic.recsys_batch(4, 64, cfg.n_dense, cfg.n_sparse, 1000,
+                                   device="cpu")
+    gcfg = cfgs.get_smoke_config("gat-cora")
+    g = graphs.random_graph(4, 300, 1200, 24, 5, device="cpu")
+    gtree = gnn.params_to_numpy(gnn.init(0, gcfg, 24, 5, device="cpu"))
+    runs = {}
+    for dev in ("cpu", card):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        p = dcn.params_from_numpy(tree, cfg, device=dev)
+        p, _, m = dcn.make_train_step(cfg, opt_cfg)(p, adamw_init(p), b)
+        hp = dcn.params_from_numpy(tree, cfg, device=dev)
+        hp, _, _, hm = dcn.make_train_step_hier(cfg, opt_cfg, drain_every=1)(
+            hp, adamw_init(dcn.rest_params(hp)),
+            dcn.hier_embed_init(cfg, 64, (64, 128, 256), device=dev), b)
+        gp = gnn.params_from_numpy(gtree, gcfg, device=dev)
+        gg = {k: v.to(dev) for k, v in g.items()}
+        gp, _, gm = gnn.make_train_step(gcfg, opt_cfg, "node")(
+            gp, adamw_init(gp), gg)
+        runs[dev] = ((p, m), (hp, hm), (gp, gm))
+    for name, got, want in zip(("dcn_dense", "dcn_hier", "gat"), runs[card],
+                               runs["cpu"]):
+        for k in ("loss", "gnorm"):
+            a, b = float(got[1][k]), float(want[1][k])
+            if not abs(a - b) <= XDEV_RTOL * abs(b):
+                raise AssertionError(f"{name} {k}: card {a} vs CPU {b}")
+        out[name] = dict(loss=float(got[1]["loss"]),
+                         params_max_rel_err=_xdev_compare(
+                             torch, got[0], want[0], opt_cfg.lr, name))
+    return out
+
+
+def train_phase(torch, device, tmp, *, dcn_smoke=False,
+                dcn_batch=DCN_TRAIN_BATCH, dcn_steps=4, vocab=VOCAB,
+                gc_cfg=None, gc_graph=None, gc_steps=3, gat_cfg=None,
+                gat_graph=None, gat_classes=7, gat_steps=5, flow_spec=None,
+                flow_cfg=None):
+    """Phase 11: training at full width (smaller where the rehearsal on the
+    CPU passes its own sizes).  Returns the numbers it printed."""
+    from repro_torch.core import vassoc
+    res = dict(dcn=dcn_train_phase(torch, device, smoke=dcn_smoke,
+                                   batch=dcn_batch, steps=dcn_steps,
+                                   vocab=vocab))
+    n = gc_cfg.n_vars
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    gc_batch = dict(gc_graph, targets=torch.randn(
+        (gc_graph["node_feat"].shape[0], n), generator=gen, device=device))
+    res["graphcast_init_check"] = init_gnorm(torch, gc_cfg, gc_batch, n,
+                                             device)
+    print("graphcast at the reference's init: " +
+          json.dumps(res["graphcast_init_check"]), flush=True)
+    res["graphcast"] = gnn_train_steps(torch, gc_cfg, gc_batch, "regress", n,
+                                       n, gc_steps, device=device,
+                                       profile=True,
+                                       layer_scale=GC_LAYER_SCALE)
+    res["graphcast"]["remat_2_layers"] = remat_check(
+        torch, dataclasses.replace(gc_cfg, n_layers=2), gc_batch, "regress",
+        n, n, device)
+    print("graphcast train: " + json.dumps(res["graphcast"]), flush=True)
+    del gc_batch
+    res["gat_full"] = gnn_train_steps(torch, gat_cfg, gat_graph, "node",
+                                      gat_graph["node_feat"].shape[1],
+                                      gat_classes, gat_steps,
+                                      device=device, profile=True)
+    print("gat-cora full_graph_sm train: " + json.dumps(res["gat_full"]),
+          flush=True)
+    _peak_reset(torch, device)
+    batch, info = flow_batch(torch, flow_spec, 9, device)
+    info["build_peak_gib"] = _peak_gib(torch, device)
+    res["gat_flow"] = gnn_train_steps(
+        torch, flow_cfg, batch, "node", flow_spec["d_feat"],
+        flow_spec["n_classes"], 2, seed_count=flow_spec["batch_nodes"],
+        device=device, profile=True)
+    res["gat_flow"].update(info)
+    print("gat minibatch_lg node flow train: " + json.dumps(res["gat_flow"]),
+          flush=True)
+    del batch
+    res["resume"] = train_resume_checks(torch, device, tmp)
+    print("train CLI resume: " + json.dumps(res["resume"]), flush=True)
+    if torch.device(device).type == "cuda":
+        res["cross_device"] = cross_device_checks(torch)
+        print("card == CPU: " + json.dumps(res["cross_device"]), flush=True)
+    res["host_syncs_total"] = vassoc.HOST_SYNCS["count"]
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1690,6 +2180,34 @@ def main() -> int:
                             tmp)
     print(json.dumps(fault), flush=True)
     print(f"phase 10 wall {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
+
+    phase("11 training at full width: DCN-v2 dense and --hier-embed through "
+          "launch/train, GraphCast on the r=6 multimesh (remat), GAT-Cora "
+          "full graph, a minibatch_lg node flow")
+    del states, states_sort, states_lay, states_fused, live
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = train_phase(
+            torch, "cuda", tmp, gc_cfg=graphcast.config(),
+            gc_graph=gc_graph, gat_cfg=gat_cora.config(),
+            gat_graph=gat_graph, gat_classes=cora["n_classes"],
+            flow_spec=GNN_SHAPES["minibatch_lg"], flow_cfg=gat_cora.config())
+    for mode in ("dense", "hier"):
+        r = tr["dcn"][mode]
+        print(f"dcn-v2 {mode} train: {r['step_ms']:.3f} ms per step "
+              f"(median after the first), {r['examples_per_s']:.1f} "
+              f"examples/s, peak {r['peak_gib']:.3f} GiB, busy "
+              f"{r['profile']['device_busy_share']:.3f}, "
+              f"{r['host_reads_per_step']:g} host reads per step; {card}",
+              flush=True)
+    for name in ("graphcast", "gat_full", "gat_flow"):
+        r = tr[name]
+        print(f"{name} train: {r['step_ms']:.3f} ms per step, peak "
+              f"{r['peak_gib']:.3f} GiB, busy "
+              f"{r['profile']['device_busy_share']:.3f}; {card}", flush=True)
+    print(f"phase 11 wall {time.perf_counter() - t0:.1f} s; {card}",
           flush=True)
 
     kernels = []

@@ -3,15 +3,16 @@
 The package mirrors ``src/repro/`` file for file: ``core/`` (semirings,
 associative segments, the hierarchy, instance-batched streaming),
 ``kernels/`` (hand-written CUDA kernels for Hopper beside their plain
-PyTorch versions), ``query/``, ``obs/``, ``data/`` and ``launch/``.  It imports
-``torch`` only: nothing of JAX and nothing of ``repro``.
+PyTorch versions), ``models/``, ``optim/``, ``query/``, ``obs/``,
+``data/`` and ``launch/``.  It imports ``torch`` only: nothing of JAX and
+nothing of ``repro``.
 
 Entry points (``core.hier.create``, ``core.distributed.create_instances``,
-``core.hier.state_from_numpy``, ``launch.ingest``, ``launch.query``) place
-state on the CUDA device unless the caller passes ``device="cpu"``; with
-no CUDA device they raise instead of falling back.  Every kernel wrapper runs its plain
-PyTorch version for a tensor on the CPU and launches its CUDA kernel for a
-tensor on the card.
+``core.hier.state_from_numpy``, ``launch.ingest``, ``launch.query``,
+``launch.train``) place state on the CUDA device unless the caller passes
+``device="cpu"``; with no CUDA device they raise instead of falling back.
+Every kernel wrapper runs its plain PyTorch version for a tensor on the
+CPU and launches its CUDA kernel for a tensor on the card.
 """
 from __future__ import annotations
 

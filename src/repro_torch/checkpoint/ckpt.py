@@ -10,8 +10,13 @@ a checkpoint written by either package restores in the other:
     ``.name``, a sequence item its index, a dict item its key (dict keys in
     sorted order), joined by ``/``; for a fleet, ``.layers/0/.hi`` ...
     ``.layers/0/.nnz``, ..., ``.spills``, ``.overflow``, ``.n_updates``,
-    ``.n_updates_hi``.  Static fields (a hierarchy's ``cuts``) are not
-    leaves: they come from the template;
+    ``.n_updates_hi``.  Static fields (a hierarchy's ``cuts``, a
+    ``vassoc.HierVec``'s too) are not leaves: they come from the template;
+    a model's ``ParamTree`` is walked as its pytree (dict keys sorted,
+    lists by index), so a training state ``dict(params, opt=dict(m, v,
+    count), hier=HierEmbedState)`` has the reference's paths
+    (``params/cross/0/w``, ``opt/m/table``,
+    ``hier/.hier/.layers/0/.key``);
   * the port's int64 update counter is written as the reference's two
     words, ``.n_updates`` (uint32, the low 32 bits) and ``.n_updates_hi``
     (int32), and read back into one int64 (``hier.counter_words``);
@@ -37,11 +42,13 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.analysis import contracts
-from repro_torch.core import hier
+from repro_torch.core import hier, vassoc
 from repro_torch.core.hier import HierAssoc
+from repro_torch.models import common
 
 _MANIFEST = "manifest.json"
 
@@ -72,6 +79,16 @@ def _walk(node, path: str, fn: Callable) -> Any:
         n = (hi.to(torch.int64) << 32) + lo.to(torch.int64)
         return HierAssoc(layers=layers, spills=spills, overflow=overflow,
                          n_updates=n, cuts=node.cuts)
+    if isinstance(node, vassoc.HierVec):
+        return vassoc.HierVec(
+            layers=_walk(node.layers, _join(path, ".layers"), fn),
+            spills=fn(_join(path, ".spills"), node.spills, None),
+            overflow=fn(_join(path, ".overflow"), node.overflow, None),
+            n_updates=fn(_join(path, ".n_updates"), node.n_updates, None),
+            cuts=node.cuts)
+    if isinstance(node, nn.Module):                 # a ParamTree
+        return common.with_leaves(
+            node, _walk(common.to_tree(node), path, fn))
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         return type(node)(**{
             f.name: _walk(getattr(node, f.name), _join(path, f".{f.name}"),

@@ -1,13 +1,20 @@
-"""Graph builders for the GNN architectures — the port of
-``repro/data/graphs.py``'s ``random_graph``, ``batched_molecules`` and
-``icosahedral_multimesh``.
+"""Graph builders and neighbor sampling for the GNN architectures — the
+port of ``repro/data/graphs.py``.
 
 Message passing uses edge lists + segment reductions.  The random builders
 draw on the device from a ``torch.Generator`` seeded with ``seed`` (the
 bits differ from JAX's; the formulas are the same); the multimesh is
 built with numpy on the host and equals the reference's arrays.
+
+The fanout sampler follows GraphSAGE "node flow" semantics: layer l samples
+``fanout[l]`` neighbors per frontier node with replacement (replicated
+nodes keep shapes static; aggregation dedups by construction).  It draws
+from an explicit ``torch.Generator`` (``jax.random`` bits cannot be
+matched); ``to_csr`` and the ``flow_*`` helpers are exact.
 """
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +64,90 @@ def batched_molecules(seed: int, n_graphs: int, n_nodes: int, n_edges: int,
                 edge_src=(src + offset).reshape(-1).to(torch.int32),
                 edge_dst=(dst + offset).reshape(-1).to(torch.int32),
                 graph_ids=graph_ids, labels=labels.to(torch.int32))
+
+
+def to_csr(src: torch.Tensor, dst: torch.Tensor, n_nodes: int):
+    """Sort edges by src (stably); returns (indptr [N+1], indices [E] =
+    sorted dst), both int32."""
+    src_s, order = torch.sort(src, stable=True)
+    dst_s = dst[order]
+    indptr = torch.searchsorted(
+        src_s, torch.arange(n_nodes + 1, dtype=src.dtype, device=src.device),
+        out_int32=True)
+    return indptr, dst_s.to(torch.int32)
+
+
+def sample_node_flow(gen: torch.Generator, indptr: torch.Tensor,
+                     indices: torch.Tensor, seeds: torch.Tensor,
+                     fanouts: Tuple[int, ...]):
+    """GraphSAGE fanout sampling with replacement, drawn on ``gen``.
+
+    Returns ``frontiers``: tuple of node-id arrays, frontiers[0] = seeds [B],
+    frontiers[l+1] [B * prod(fanouts[:l+1])] = sampled neighbors of
+    frontiers[l] (row-major: node i's samples at [i*f, (i+1)*f)).  Nodes with
+    degree 0 replicate themselves (self-loop semantics, mask-free shapes).
+    """
+    frontiers = [seeds.to(torch.int32)]
+    cur = frontiers[0]
+    n_idx = indices.shape[0]
+    for f in fanouts:
+        c = cur.long()
+        start = indptr[c].long()
+        deg = indptr[c + 1].long() - start                       # [Nf]
+        draw = torch.randint(0, 1 << 30, (cur.shape[0], int(f)),
+                             generator=gen, device=cur.device)
+        slot = start[:, None] + draw % torch.clamp(deg[:, None], min=1)
+        nbr = indices[torch.clamp(slot, 0, max(n_idx - 1, 0))]   # [Nf, f]
+        nbr = torch.where(deg[:, None] > 0, nbr, cur[:, None])   # isolated
+        cur = nbr.reshape(-1)
+        frontiers.append(cur)
+    return tuple(frontiers)
+
+
+def flow_edges(frontiers: Sequence[torch.Tensor], fanouts: Tuple[int, ...]):
+    """Edge lists (src=child sample, dst=parent position) per flow layer,
+    in *local position space* so models can segment-reduce directly."""
+    edges = []
+    for l, f in enumerate(fanouts):
+        n_par, dev = frontiers[l].shape[0], frontiers[l].device
+        dst = torch.repeat_interleave(
+            torch.arange(n_par, dtype=torch.int32, device=dev), f)
+        src = torch.arange(n_par * f, dtype=torch.int32, device=dev)
+        edges.append((src, dst))
+    return edges
+
+
+def flow_subgraph(frontiers: Sequence[torch.Tensor],
+                  fanouts: Tuple[int, ...]):
+    """Union subgraph of a node flow, in local position space.
+
+    Nodes = concat(frontiers) (seeds first, so seed positions are [0, B)).
+    Edges connect each sampled child position to its parent position —
+    message direction child -> parent, matching GraphSAGE aggregation.
+    Returns (node_ids [N_sub], edge_src [E_sub], edge_dst [E_sub]).
+    """
+    node_ids = torch.cat(list(frontiers))
+    offsets = [0]
+    for f in frontiers:
+        offsets.append(offsets[-1] + f.shape[0])
+    srcs, dsts = [], []
+    for l, fan in enumerate(fanouts):
+        n_par, dev = frontiers[l].shape[0], frontiers[l].device
+        dst = offsets[l] + torch.repeat_interleave(
+            torch.arange(n_par, dtype=torch.int32, device=dev), fan)
+        src = offsets[l + 1] + torch.arange(n_par * fan, dtype=torch.int32,
+                                            device=dev)
+        srcs.append(src)
+        dsts.append(dst)
+    return node_ids, torch.cat(srcs), torch.cat(dsts)
+
+
+def flow_sizes(batch_nodes: int, fanouts: Tuple[int, ...]):
+    """Static (n_sub_nodes, n_sub_edges) of a fanout node flow."""
+    sizes = [batch_nodes]
+    for f in fanouts:
+        sizes.append(sizes[-1] * f)
+    return sum(sizes), sum(sizes[1:])
 
 
 def icosahedral_multimesh(refinement: int):

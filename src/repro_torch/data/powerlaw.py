@@ -28,10 +28,15 @@ def rmat_edges(gen: torch.Generator, n_edges: int, scale: int,
     bounds = torch.tensor(np.cumsum(params)[:-1], dtype=torch.float32,
                           device=dev)
     u = torch.rand((n_edges, scale), generator=gen, device=dev)
-    quad = torch.searchsorted(bounds, u, right=True)     # [E, S] in {0..3}
-    weights = 1 << torch.arange(scale, device=dev, dtype=torch.int64)
-    rows = torch.sum((quad >> 1) * weights, dim=1).to(torch.int32)
-    cols = torch.sum((quad & 1) * weights, dim=1).to(torch.int32)
+    rows = torch.zeros((n_edges,), dtype=torch.int32, device=dev)
+    cols = torch.zeros((n_edges,), dtype=torch.int32, device=dev)
+    # one bit level at a time: [E] temporaries, not [E, S] int64 ones
+    # (114M edges at scale 18 would take ~50 GB)
+    for s in range(scale):
+        quad = torch.searchsorted(bounds, u[:, s].contiguous(),
+                                  right=True, out_int32=True)   # {0..3}
+        rows += (quad >> 1) << s
+        cols += (quad & 1) << s
     return rows, cols
 
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import registry
 from repro_torch.kernels.embedding_bag import ref
 from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag_cuda
 
@@ -17,8 +18,12 @@ def embedding_bag(table, indices, weights=None, mask=None, *,
     """out[b] = combine_l  weights[b,l] * table[indices[b,l]].
 
     indices [B, L] integer; optional mask [B, L] bool (False = padding);
-    optional weights [B, L].  Returns [B, D] float32.
+    optional weights [B, L].  Returns [B, D] float32.  With ``use_kernel``
+    it raises ``NotImplementedError`` when grad mode is on and ``table`` or
+    ``weights`` requires grad (the kernel has no backward).
     """
+    if use_kernel:
+        registry.refuse_autograd("embedding_bag", table, weights)
     if combiner not in ("sum", "mean"):
         raise ValueError(f"unknown combiner {combiner!r}")
     n_bags, bag = indices.shape

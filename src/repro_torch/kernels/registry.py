@@ -57,6 +57,21 @@ def launches() -> dict:
     return dict(LAUNCHES)
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` requires grad.  The kernels have no backward, as the JAX
+    package's ``pallas_call``s have no differentiation rule: a kernel route
+    refuses autograd on every device, so the CPU's plain version cannot
+    differentiate where the card cannot, and the card cannot drop a
+    gradient by filling a tensor outside the graph."""
+    import torch
+    if torch.is_grad_enabled() and any(getattr(t, "requires_grad", False)
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the kernel route has no backward (as in the JAX "
+            f"package); differentiate with use_kernel=False")
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelJob:
     """One kernel configuration.

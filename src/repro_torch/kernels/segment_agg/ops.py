@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import registry
 from repro_torch.kernels.segment_agg import ref
 from repro_torch.kernels.segment_agg.segment_agg import segment_sum_cuda
 
@@ -46,9 +47,12 @@ def segment_sum(messages, seg_ids, *, num_segments: int,
     """Segment-sum messages [E, D] by seg_ids [E] -> [num_segments, D] f32.
 
     seg_ids outside [0, num_segments) are treated as padding and dropped.
+    With ``use_kernel`` it raises ``NotImplementedError`` when grad mode is
+    on and ``messages`` requires grad (the kernel has no backward).
     """
     if not use_kernel:
         return ref.segment_sum_ref(messages, seg_ids, num_segments)
+    registry.refuse_autograd("segment_sum", messages)
     order, seg_sorted, tile_starts, num_tiles = stage(
         seg_ids, num_segments=num_segments, assume_sorted=assume_sorted)
     out = segment_sum_cuda(messages.to(torch.float32).contiguous(),

@@ -7,9 +7,17 @@ JAX package's parameter pytree (nested dicts and lists of arrays), whose
 ``nn.ModuleList``s, arrays become parameters (a 0-d array a 0-d
 parameter).  ``tree_from_numpy`` / ``tree_to_numpy`` carry parameters
 between the two packages as numpy arrays.
+
+Training walks a tree — a ``ParamTree``, or nested dicts and lists of
+tensors such as the optimizer's moments — in the JAX package's leaf order
+(dict keys sorted, lists by index: ``tree_leaves``), and takes gradients
+with ``value_and_grad``, which turns autograd on for the leaves only for
+the one call: outside it no parameter requires grad, so the serving
+functions build no graph.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -81,11 +89,12 @@ def _attach(module: nn.Module, name: str, v) -> None:
         module.add_module(name, node)
 
 
-def _to_tree(module: nn.Module):
+def to_tree(module: nn.Module):
+    """A ``ParamTree`` as nested dicts/lists of its (detached) tensors."""
     if isinstance(module, nn.ModuleList):
-        return [_to_tree(m) for m in module]
+        return [to_tree(m) for m in module]
     out = {k: p.detach() for k, p in module.named_parameters(recurse=False)}
-    out.update({k: _to_tree(m) for k, m in module.named_children()})
+    out.update({k: to_tree(m) for k, m in module.named_children()})
     return out
 
 
@@ -107,7 +116,7 @@ def tree_to_numpy(module: nn.Module) -> dict:
         if isinstance(t, list):
             return [conv(v) for v in t]
         return t.cpu().numpy()
-    return conv(_to_tree(module))
+    return conv(to_tree(module))
 
 
 def shapes(tree):
@@ -117,3 +126,94 @@ def shapes(tree):
     if isinstance(tree, (list, tuple)):
         return [shapes(v) for v in tree]
     return tuple(tree.shape)
+
+
+# ------------------------------------------------------------------ trees --
+
+def _children(node):
+    """The (name, child) pairs of a tree node in the JAX package's leaf
+    order, or None for a leaf."""
+    if isinstance(node, (nn.ModuleList, list, tuple)):
+        return list(enumerate(node))
+    if isinstance(node, nn.Module):
+        items = dict(node.named_parameters(recurse=False))
+        items.update(node.named_children())
+        return sorted(items.items())
+    if isinstance(node, dict):
+        return sorted(node.items())
+    return None
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of ``tree`` in the JAX package's leaf order."""
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [x for _, c in kids for x in tree_leaves(c)]
+
+
+def _rebuild(node, make):
+    kids = _children(node)
+    if kids is None:
+        return make()
+    if isinstance(node, (nn.ModuleList, list, tuple)):
+        return [_rebuild(c, make) for _, c in kids]
+    return {k: _rebuild(c, make) for k, c in kids}
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of the
+    ``rest``), as nested dicts and lists of ``tree``'s nesting: a module
+    becomes a dict, a ``ModuleList`` a list."""
+    it = iter(zip(tree_leaves(tree), *(tree_leaves(r) for r in rest)))
+    return _rebuild(tree, lambda: fn(*next(it)))
+
+
+def tree_unflatten(tree, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in ``tree``'s nesting."""
+    it = iter(leaves)
+    return _rebuild(tree, lambda: next(it))
+
+
+def with_leaves(module: nn.Module, tree) -> nn.Module:
+    """A shallow copy of a ``ParamTree`` (its class and attributes, such as
+    a config) whose parameters are the tensors of ``tree``, a nested
+    dict/list of its nesting."""
+    new = copy.copy(module)
+    new._parameters, new._modules = {}, {}
+    for name in module._parameters:
+        new.register_parameter(name, nn.Parameter(tree[name],
+                                                  requires_grad=False))
+    for name, child in module._modules.items():
+        if isinstance(child, nn.ModuleList):
+            new.add_module(name, nn.ModuleList(
+                with_leaves(c, t) for c, t in zip(child, tree[name])))
+        else:
+            new.add_module(name, with_leaves(child, tree[name]))
+    return new
+
+
+def value_and_grad(fn, *trees):
+    """``fn(*trees) -> (loss, aux)`` with autograd on for every leaf of
+    ``trees`` during the call; returns ``((loss, aux), grads)``, loss and
+    aux detached, ``grads`` one nested dict/list per tree (zeros for a
+    leaf the loss does not reach, as ``jax.grad`` gives)."""
+    per_tree = [tree_leaves(t) for t in trees]
+    flat = [x for leaves in per_tree for x in leaves]
+    with torch.enable_grad():
+        for x in flat:
+            x.requires_grad_(True)
+        try:
+            loss, aux = fn(*trees)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        finally:
+            for x in flat:
+                x.requires_grad_(False)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(flat, grads)]
+    out, at = [], 0
+    for t, leaves in zip(trees, per_tree):
+        out.append(tree_unflatten(t, grads[at:at + len(leaves)]))
+        at += len(leaves)
+    aux = {k: v.detach() for k, v in aux.items()}
+    return (loss.detach(), aux), tuple(out)

@@ -1,7 +1,6 @@
-"""DCN-v2 (arXiv:2008.13535) serving: embedding tables -> cross network ->
-deep MLP, on the card.
-
-The port of ``repro/models/dcn.py``'s serving path.  The 26 per-field
+"""DCN-v2 (arXiv:2008.13535): embedding tables -> cross network -> deep
+MLP, served and trained on the card — the port of ``repro/models/dcn.py``.
+  The 26 per-field
 embedding tables are STACKED into one [padded_rows, embed_dim] table with
 static per-field offsets; the lookup (a gather, or with ``cfg.use_kernel``
 the ``embedding_bag`` CUDA kernel) is the serving hot path.  Cross layers
@@ -11,12 +10,26 @@ by the deep MLP (1024-1024-512) and a logit head.
 The model is a ``DCNv2`` module whose parameter names are the JAX pytree's
 paths (``table``, ``cross.0.w``, ``mlp.2.b``, ``logit_w``, a 0-d
 ``logit_b``); the serving functions keep the JAX names and signatures and
-take the module where JAX takes ``params``.  Inference only: the
-parameters do not require gradients (the kernels have no backward yet; the
-training steps are still to port).
+take the module where JAX takes ``params``.  The parameters do not
+require gradients: the training steps turn autograd on for their leaves
+only inside a step (``common.value_and_grad``).
+
+Training paths:
+  * ``make_train_step``      — dense autodiff table grads (reference).
+  * ``make_train_step_hier`` — the PAPER'S TECHNIQUE as an optimizer
+    feature: per-step row-sparse embedding grads are block-added into a
+    hierarchical accumulator (``core/vassoc.HierVec``); the master table is
+    only touched when the deepest cut spills or every ``drain_every``
+    steps (a batched scatter-apply).  Dense params take AdamW; embedding
+    rows follow SGD semantics (DLRM-standard).
+Both update the parameters in place.  The ``embedding_bag`` kernel has no
+backward (nor has the reference's): a step with ``cfg.use_kernel`` raises
+``NotImplementedError``; the hier step reads the table with a gather, as
+the reference's does.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
@@ -24,8 +37,10 @@ import torch
 
 from repro_torch import generator, resolve_device
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.core import vassoc
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.models import common
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
 class DCNv2(common.ParamTree):
@@ -124,6 +139,119 @@ def forward(params: DCNv2, batch: Dict[str, torch.Tensor],
     h = interact(params, batch["dense"], embeds, cfg)
     return (h @ params.logit_w)[:, 0] + params.logit_b
 
+
+def bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    # at x = 0 the reference's gradients are jnp.maximum's 0.5 (torch's
+    # ``maximum`` splits a tie too; ``relu`` and ``clamp`` give 0 or 1) and
+    # jnp.abs's 1 (torch's ``abs`` gives 0; the ``where`` gives 1)
+    x, y = logits.float(), labels.float()
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    abs_x = torch.where(x >= 0, x, -x)
+    return torch.mean(torch.maximum(x, zero) - x * y
+                      + torch.log1p(torch.exp(-abs_x)))
+
+
+# ---------------------------------------------------------------- training --
+
+def make_train_step(cfg: RecsysConfig, opt_cfg: AdamWConfig):
+    """Reference path: dense autodiff grads for everything (incl. table)."""
+
+    def loss_fn(params, batch):
+        logits = forward(params, batch, cfg)
+        loss = bce(logits, batch["labels"])
+        return loss, dict(loss=loss)
+
+    def step(params, opt_state, batch):
+        (loss, metrics), (grads,) = common.value_and_grad(
+            lambda p: loss_fn(p, batch), params)
+        params, opt_state, gnorm = adamw_update(grads, opt_state, params,
+                                                opt_cfg)
+        return params, opt_state, dict(metrics, gnorm=gnorm)
+
+    return step
+
+
+@dataclasses.dataclass(frozen=True)
+class HierEmbedState:
+    """Pending sparse embedding-gradient mass (the paper's hierarchy)."""
+    hier: vassoc.HierVec
+    steps: torch.Tensor              # int32, for the periodic drain
+
+
+def hier_embed_init(cfg: RecsysConfig, batch: int,
+                    cuts: Tuple[int, ...] = (8192, 65536, 524288), *,
+                    device=None) -> HierEmbedState:
+    dev = resolve_device(device)
+    block = batch * cfg.n_sparse * cfg.multi_hot
+    return HierEmbedState(
+        hier=vassoc.create(cuts, block, cfg.embed_dim, device=dev),
+        steps=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def rest_params(params: DCNv2) -> dict:
+    """Every parameter but the table, as the pytree's top-level dict."""
+    items = dict(params.named_parameters(recurse=False))
+    items.update(params.named_children())
+    return {k: v for k, v in items.items() if k != "table"}
+
+
+def make_train_step_hier(cfg: RecsysConfig, opt_cfg: AdamWConfig,
+                         embed_lr: float = 0.05, drain_every: int = 64):
+    """Paper-technique path: hierarchical sparse embedding-grad accumulation.
+
+    The embedding activation e [B, F, D] is treated as a leaf: autodiff
+    yields (dense-param grads, grad_e); grad_e rows are block-added into the
+    HierVec keyed by stacked-table row id.  The master table is touched
+    only on drain (deepest-cut pressure or every ``drain_every`` steps).
+    Two host reads of a device flag per step with three cuts (the spill
+    decisions of ``vassoc.update``) plus one for the drain.
+    """
+
+    def loss_from_embeds(params, embeds_flat, batch):
+        # ``params``' leaves but the table are the ``rest`` differentiated
+        h = interact(params, batch["dense"], embeds_flat, cfg)
+        logits = (h @ params.logit_w)[:, 0] + params.logit_b
+        loss = bce(logits, batch["labels"])
+        return loss, dict(loss=loss)
+
+    def step(params, opt_state, hstate: HierEmbedState, batch):
+        table = params.table
+        rest = rest_params(params)
+        gids = global_ids(batch["sparse"], cfg)          # [B, F, H]
+        b, f, hh = gids.shape
+        with torch.no_grad():
+            vecs = table[gids.long()]                    # [B, F, H, D]
+            embeds_flat = torch.sum(vecs, dim=2).reshape(
+                b, f * cfg.embed_dim)
+            del vecs
+
+        (loss, metrics), (g_rest, g_embeds) = common.value_and_grad(
+            lambda r, e: loss_from_embeds(params, e, batch), rest,
+            embeds_flat)
+        _, opt_state, gnorm = adamw_update(g_rest, opt_state, rest, opt_cfg)
+
+        # row-sparse table grads: every (b, f, h) occurrence carries the
+        # field's grad slice (sum-combine duplicates inside the hierarchy)
+        g_rows = g_embeds.reshape(b, f, 1, cfg.embed_dim).expand(
+            b, f, hh, cfg.embed_dim).reshape(-1, cfg.embed_dim)
+        hier = vassoc.update(hstate.hier, gids.reshape(-1), g_rows)
+        steps = hstate.steps + 1
+
+        last = hier.layers[-1]
+        pressure = (last.nnz > hier.cuts[-1]) | (steps % drain_every == 0)
+        if vassoc.host_flag(pressure):
+            hier, _ = vassoc.drain_to_table(hier, table, -embed_lr)
+
+        telemetry = dict(metrics, gnorm=gnorm,
+                         pending_nnz=torch.sum(hier.nnz_per_layer(),
+                                               dtype=torch.int32),
+                         spills=hier.spills, drained=pressure)
+        return params, opt_state, HierEmbedState(hier, steps), telemetry
+
+    return step
+
+
+# ----------------------------------------------------------------- serving --
 
 def serve_scores(params: DCNv2, batch: Dict[str, torch.Tensor],
                  cfg: RecsysConfig) -> torch.Tensor:

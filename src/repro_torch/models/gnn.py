@@ -1,7 +1,6 @@
-"""GNN zoo forward pass: GAT, GIN, GatedGCN, GraphCast-style
-encoder-processor-decoder, on the card.
-
-The port of ``repro/models/gnn.py``'s forward pass.  All message passing is
+"""GNN zoo: GAT, GIN, GatedGCN, GraphCast-style encoder-processor-decoder,
+inference and training on the card — the port of ``repro/models/gnn.py``.
+  All message passing is
 edge-list based: gather source-node features per edge, transform, then sum
 (or max) into destination nodes.  ``cfg.use_kernel`` routes the
 destination sum through the ``segment_agg`` CUDA kernels (edges sorted by
@@ -15,9 +14,19 @@ Graph dict convention (``data/graphs.py`` builders):
 The model is a ``GNN`` module whose parameter names are the JAX pytree's
 paths (``layers.3.edge_mlp.1.w``, ``head``, ``w_in``); ``forward`` keeps
 the JAX name and signature and takes the module where JAX takes
-``params``.  Inference only: the parameters do not require gradients (the
-kernel has no backward yet; ``make_loss_fn`` / ``make_train_step`` are
-still to port).
+``params``.  The parameters do not require gradients: ``make_train_step``
+turns autograd on for their leaves only inside a step
+(``common.value_and_grad``) and updates them in place.  With ``cfg.remat``
+a differentiated forward checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant) where the reference takes
+``jax.checkpoint``: only layer inputs are kept, the layer is recomputed in
+the backward.  The ``segment_agg`` kernel has no backward (nor has the
+reference's): a step with ``cfg.use_kernel`` raises
+``NotImplementedError``.
+
+Tasks: "node" (per-node classification), "graph" (readout
+classification), "regress" (per-node regression, GraphCast's
+weather-state prediction).
 """
 from __future__ import annotations
 
@@ -25,11 +34,13 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import generator, resolve_device
 from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels.segment_agg import ops as seg_ops
 from repro_torch.models import common
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
 class GNN(common.ParamTree):
@@ -220,6 +231,19 @@ def params_to_numpy(params: GNN) -> dict:
     return common.tree_to_numpy(params)
 
 
+def _layer(cfg: GNNConfig, lp, fn, *args):
+    """One layer, checkpointed when ``cfg.remat`` and it is differentiated
+    (per-layer remat: at ogb_products scale storing every layer's edge
+    activations for backward is hundreds of GiB; checkpointing keeps only
+    layer inputs and recomputes inside backward)."""
+    if cfg.remat and torch.is_grad_enabled() and (
+            any(p.requires_grad for p in lp.parameters())
+            or any(a.requires_grad for a in args)):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params: GNN, cfg: GNNConfig,
             graph: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Returns per-node outputs [N, n_out] (callers readout for graph
@@ -231,20 +255,30 @@ def forward(params: GNN, cfg: GNNConfig,
     if cfg.kind == "gat":
         for i, lp in enumerate(params.layers):
             last = i == len(params.layers) - 1
-            out = _gat_layer(lp, h, src, dst, n, cfg.n_heads, cfg,
-                             concat=not last)
-            h = out if last else F.elu(out)
+
+            def blk(h, lp=lp, last=last):
+                out = _gat_layer(lp, h, src, dst, n, cfg.n_heads, cfg,
+                                 concat=not last)
+                return out if last else F.elu(out)
+
+            h = _layer(cfg, lp, blk, h)
         return h @ params.head
     if cfg.kind == "gin":
         for lp in params.layers:
-            h = _gin_layer(lp, h, src, dst, n, cfg, cfg.learnable_eps)
+            def blk(h, lp=lp):
+                return _gin_layer(lp, h, src, dst, n, cfg, cfg.learnable_eps)
+
+            h = _layer(cfg, lp, blk, h)
         return h @ params.head
     if cfg.kind == "gatedgcn":
         h = h @ params.w_in
         e = torch.zeros((src.shape[0], cfg.d_hidden), dtype=h.dtype,
                         device=h.device)
         for lp in params.layers:
-            h, e = _gatedgcn_layer(lp, h, e, src, dst, n, cfg)
+            def blk(h, e, lp=lp):
+                return _gatedgcn_layer(lp, h, e, src, dst, n, cfg)
+
+            h, e = _layer(cfg, lp, blk, h, e)
         return h @ params.head
     if cfg.kind == "graphcast":
         h = _mlp(params.w_in, h)
@@ -252,7 +286,10 @@ def forward(params: GNN, cfg: GNNConfig,
                  torch.ones((src.shape[0], 1), dtype=h.dtype,
                             device=h.device))
         for lp in params.layers:
-            h, e = _interaction_layer(lp, h, e, src, dst, n, cfg)
+            def blk(h, e, lp=lp):
+                return _interaction_layer(lp, h, e, src, dst, n, cfg)
+
+            h, e = _layer(cfg, lp, blk, h, e)
         return _mlp(params.head, h)
     raise ValueError(cfg.kind)
 
@@ -260,3 +297,60 @@ def forward(params: GNN, cfg: GNNConfig,
 def graph_readout(node_out: torch.Tensor, graph_ids: torch.Tensor,
                   n_graphs: int) -> torch.Tensor:
     return _scatter_sum(node_out, graph_ids, n_graphs)
+
+
+# ---------------------------------------------------------------- training --
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    ls = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(torch.take_along_dim(ls, labels.long()[:, None],
+                                            dim=-1))
+
+
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.mean((torch.argmax(logits, -1) == labels).float())
+
+
+def make_loss_fn(cfg: GNNConfig, task: str, seed_count: int = 0):
+    """``seed_count`` > 0 restricts node-task loss to the first
+    ``seed_count`` positions — the seeds of a sampled node flow."""
+    def loss_fn(params, batch):
+        out = forward(params, cfg, batch)
+        if task == "node":
+            logits, labels = out, batch["labels"]
+            if seed_count:                      # sampled: loss on seeds only
+                logits, labels = logits[:seed_count], labels[:seed_count]
+            loss = _nll(logits, labels)
+            return loss, dict(loss=loss, acc=_accuracy(logits, labels))
+        if task == "graph":
+            labels = batch["labels"]
+            logits = graph_readout(out, batch["graph_ids"], labels.shape[0])
+            loss = _nll(logits, labels)
+            return loss, dict(loss=loss, acc=_accuracy(logits, labels))
+        if task == "regress":
+            err = (out - batch["targets"]).float()
+            loss = torch.mean(torch.square(err))
+            return loss, dict(loss=loss,
+                              acc=torch.zeros((), device=loss.device))
+        raise ValueError(task)
+    return loss_fn
+
+
+def make_train_step(cfg: GNNConfig, opt_cfg: AdamWConfig, task: str,
+                    seed_count: int = 0):
+    loss_fn = make_loss_fn(cfg, task, seed_count)
+
+    def step(params, opt_state, batch):
+        (loss, metrics), (grads,) = common.value_and_grad(
+            lambda p: loss_fn(p, batch), params)
+        params, opt_state, gnorm = adamw_update(grads, opt_state, params,
+                                                opt_cfg)
+        return params, opt_state, dict(metrics, gnorm=gnorm)
+
+    return step
+
+
+def task_for_shape(shape_kind: str, arch_kind: str) -> str:
+    if arch_kind == "graphcast":
+        return "regress"
+    return "graph" if shape_kind == "batched" else "node"

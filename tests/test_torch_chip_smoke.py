@@ -114,3 +114,43 @@ def test_fault_phase_on_cpu(tmp_path):
     assert res["checkpoint_mib"] > 0
     assert "sentinel-tail violation in restore step_1 layer 1" \
         in res["refused"]
+
+
+def test_train_phase_on_cpu(tmp_path):
+    """Phase 11 at smoke size: DCN-v2 dense and ``--hier-embed`` through
+    ``launch/train.run_with_state`` (finite losses and gnorms, a non-zero
+    gradient for every leaf, the kernel route refused), the hier path's
+    exact mass, GraphCast (remat on == off at 2 layers), GAT full graph, a
+    sampled node flow with ``seed_count``, and the train CLI's resume."""
+    _, src, dst = graphs.icosahedral_multimesh(2)
+    gc = registry.get_smoke_config("graphcast")
+    gen = torch.Generator().manual_seed(5)
+    gc_graph = dict(node_feat=torch.randn((162, gc.n_vars), generator=gen),
+                    edge_src=torch.as_tensor(src),
+                    edge_dst=torch.as_tensor(dst))
+    gat = registry.get_smoke_config("gat-cora")
+    gat_graph = graphs.random_graph(6, 300, 1200, 50, 7, device="cpu")
+    flow = dict(kind="sampled", n_nodes=500, n_edges=4000, batch_nodes=16,
+                fanouts=(3, 2), d_feat=12, n_classes=5)
+    res = chip_smoke.train_phase(
+        torch, "cpu", str(tmp_path), dcn_smoke=True, dcn_batch=16,
+        dcn_steps=3, vocab=5000, gc_cfg=gc, gc_graph=gc_graph, gc_steps=2,
+        gat_cfg=gat, gat_graph=gat_graph, gat_classes=7, gat_steps=2,
+        flow_spec=flow, flow_cfg=gat)
+    for mode in ("dense", "hier"):
+        r = res["dcn"][mode]
+        assert len(r["losses"]) == 3 and r["examples_per_s"] > 0
+        assert r["grads"]["leaves"] == (11 if mode == "dense" else 11)
+    assert res["dcn"]["hier"]["host_reads_per_step"] == 3   # 2 spills, drain
+    assert res["dcn"]["hier_exact"]["max_abs_err"] <= 1e-5
+    remat = res["graphcast"]["remat_2_layers"]
+    assert remat["deterministic"]["max_rel_err"] <= 1e-5
+    assert remat["default"]["max_rel_err"] <= 1e-5       # ordered on a CPU
+    assert res["gat_flow"]["flow_nodes"] == 16 + 48 + 96
+    assert res["gat_flow"]["flow_edges"] == 48 + 96
+    for arch in ("dcn-v2", "gat-cora"):
+        assert res["resume"][arch]["resumed_rel_err"] <= 1e-5
+    assert "cross_device" not in res                  # the card only
+    # the card-vs-CPU comparison's own code, with the CPU standing in
+    xdev = chip_smoke.cross_device_checks(torch, card="cpu")
+    assert all(v["params_max_rel_err"] == 0.0 for v in xdev.values())

@@ -172,3 +172,35 @@ def test_fault_tolerance_modules_import_no_jax(monkeypatch, tmp_path):
         ingest.run(args)
     assert restore(str(tmp_path), 1, fleet, device="cpu").device.type \
         == "cpu"
+
+
+def test_training_modules_import_no_jax_and_default_to_cuda(monkeypatch):
+    """The training slice (optim, vassoc, the train driver) imports neither
+    JAX nor anything of the JAX package; its entry points default to cuda
+    and raise without it."""
+    for name in ("optim/__init__.py", "optim/adamw.py",
+                 "optim/sparse_update.py", "core/vassoc.py",
+                 "launch/train.py", "models/common.py", "models/dcn.py",
+                 "models/gnn.py", "data/graphs.py"):
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "import repro_torch.optim, repro_torch.optim.sparse_update\n"
+            "import repro_torch.core.vassoc, repro_torch.launch.train\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import dcn
+    assert train.parser().parse_args([]).device == "cuda"
+    assert train.make_args().device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run(train.make_args(arch="dcn-v2"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dcn.hier_embed_init(registry.get_smoke_config("dcn-v2"), 4)
