@@ -105,7 +105,30 @@ caught and passed over):
    --fail-at-step 6``, each final loss equal to the uninterrupted run's
    within rtol 1e-5; and one step of each family on the card equal to the
    same step on the CPU (losses and gnorms within rtol 1e-4, parameters
-   within rtol 1e-4 plus a tenth of one AdamW step).
+   within rtol 1e-4 plus a tenth of one AdamW step);
+12. the fleet across ranks (``fleet_phase``): phase 4's fleet and stream
+   on P = 1, 2, 4 (and 8 where the process may use 8 cores) gloo ranks
+   sharing the card, and on nccl with one rank a card where there are 2
+   or more (``launch/mesh.spawn_fleet``).  Each rank draws each round's
+   whole stream, keeps its block of instances, and runs
+   ``sharded_ingest_fn`` between two barriers; rank 0 times the span, and
+   the aggregate rate is 4,194,304 over the summed spans.  Exact checks:
+   the ranks' blocks equal phase 4's fleet leaf for leaf; the fleet
+   counter is 4,194,304 on every rank; ``global_degree_histogram_fn``
+   (2**22 rows, 16 bins) equals the one the parent bins with numpy from
+   phase 4's states; ``sharded_query_fn`` (canon, kernel) on 4,096 keys
+   (live keys of every layer and instance, then random ones) equals
+   ``reduce_axis`` over phase 4's per-instance scan lookups, and its
+   per-instance blocks joined equal those lookups; the ranks' ingest
+   merges summed equal phase 4's per route, every rank launched
+   ``merge_multi``, and each canon call launched it once per instance.
+   Then a max.plus and a min.plus fleet (phase 6's size, integer values
+   in [1, 100)) on 2 ranks against one process.  Per P: the aggregate
+   updates/s, each rank's rate and peak memory, the wall and the card;
+   and one more round in every rank under ``torch.profiler``, after the
+   checks: the kernel time of a card's ranks summed over the slowest
+   rank's wall is that card's busy share (kernels of separate processes
+   do not overlap).
 
 Phase 3 also holds both merges with float16 and bfloat16 values against
 their plain versions under the four semirings (keys and nnz exact,
@@ -134,7 +157,9 @@ It prints the card line, one JSON line with every kernel's numbers (the
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
 the kernel took powers of two only; both merge rows carry their float16
 and bfloat16 numbers under those keys), and as its last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``; the ``merge_multi`` row also
+carries ``phase12_launches``, phase 12's launches summed over each
+fleet's ranks.
 """
 from __future__ import annotations
 
@@ -808,9 +833,9 @@ def segment_phase(torch, gen, mesh, gat_dst):
     gc.update(shape=f"graphcast r6 {gc['shape']}",
               max_abs_err_vs_index_add=worst, sort_route_ms=None,
               gat_cora={k: gat[k] for k in (
-                  "shape", "max_abs_err", "ms", "ops_ms", "library_ms",
-                  "bound_ms", "device_us", "kernels_per_call", "ops_device_us",
-                  "ops_kernels_per_call")})
+                  "shape", "max_abs_err", "ms", "ops_ms", "plain_ms",
+                  "library_ms", "bound_ms", "device_us", "kernels_per_call",
+                  "ops_device_us", "ops_kernels_per_call")})
     print("segment_agg.segment_sum: " + json.dumps(gc), flush=True)
     return gc
 
@@ -1965,6 +1990,282 @@ def train_phase(torch, device, tmp, *, dcn_smoke=False,
     return res
 
 
+# ------------------------------------------------------------- phase 12 --
+
+FLEET_AXES = ("data",)
+FLEET_BINS = 16
+FLEET_QUERIES = 4096
+
+
+def fleet_round(torch, args, rnd: int, device, tropical: bool):
+    """Round ``rnd``'s stream of the whole fleet, drawn as
+    ``launch/ingest.py`` draws it; a tropical fleet's values are integers
+    in [1, 100) drawn after it from the same generator."""
+    from repro_torch.data.powerlaw import instance_streams
+    from repro_torch.launch import ingest
+    gen = ingest.round_generator(args.seed, rnd, device)
+    rows, cols, vals = instance_streams(
+        gen, args.instances, args.blocks // args.rounds, args.block_size,
+        scale=args.scale)
+    if tropical:
+        vals = torch.randint(1, 100, vals.shape, generator=gen,
+                             device=device).to(torch.float32)
+    return rows, cols, vals
+
+
+def fleet_queries(torch, states, n_queries: int, scale: int, seed: int):
+    """One query vector for the whole fleet, as phase 4 draws its own:
+    live keys of every layer of every instance (n_queries / 2, / 4 and / 8
+    over the instances of layers 2, 1 and 0), then random keys; numpy."""
+    n_inst = states.spills.shape[0]
+    gen = torch.Generator(device=states.device)
+    gen.manual_seed(seed)
+    parts = []
+    for layer, share in zip(states.layers[::-1], (2, 4, 8)):
+        take = max(n_queries // share // n_inst, 1)
+        for i in range(n_inst):
+            n = min(take, int(layer.nnz[i]))
+            parts.append(torch.stack([layer.hi[i, :n], layer.lo[i, :n]]))
+    live = torch.cat(parts, dim=1)[:, :n_queries]
+    rand = torch.randint(0, 1 << scale, (2, n_queries - live.shape[1]),
+                         generator=gen, device=states.device,
+                         dtype=torch.int32)
+    q = torch.cat([live, rand], dim=1).cpu().numpy()
+    return q[0].copy(), q[1].copy()
+
+
+def fleet_expected(torch, states, sr, queries, num_rows: int) -> dict:
+    """The single-process answers phase 12 is held to, on the host: the
+    state leaf for leaf, every instance's lookups of ``queries`` (scan
+    mode, no kernel, one instance at a time) and their ``sr.add`` over the
+    instances, the out-degree histogram binned with numpy (rows whose
+    total is above 0, ``floor(log2)`` clipped into 16 bins) and the exact
+    counter."""
+    import numpy as np
+    from repro_torch.core import assoc, hier, stream
+    from repro_torch.query import engine
+    q_rows, q_cols = (torch.as_tensor(x, device=states.device)
+                      for x in queries)
+    per, hist = [], np.zeros(FLEET_BINS, np.int64)
+    for i in range(states.spills.shape[0]):
+        h = stream.instance(states, i)
+        per.append(engine.point_lookup(h, q_rows, q_cols, sr=sr,
+                                       l0_mode="scan"))
+        deg = assoc.reduce_rows(hier.query_all(h, sr), num_rows, sr)
+        deg = deg.double().cpu().numpy()
+        bins = np.clip(np.floor(np.log2(np.maximum(deg, 1))), 0,
+                       FLEET_BINS - 1).astype(np.int64)
+        hist += np.bincount(bins[deg > 0], minlength=FLEET_BINS)
+    per = torch.stack(per)
+    return dict(state=hier.state_to_numpy(states), per=per.cpu().numpy(),
+                comb=engine.reduce_axis(sr, per, 0).cpu().numpy(),
+                hist=hist, count=hier.exact_update_count(states))
+
+
+def fleet_rank(mesh, args, sr_name: str, tropical: bool, queries) -> dict:
+    """One rank of phase 12 (started by ``launch.mesh.spawn_fleet``): its
+    block of the fleet through ``sharded_ingest_fn`` round by round, each
+    round drawn whole, cut to the block, then ingested between two
+    barriers; then the fleet counter, the degree histogram and the canon
+    point lookups (combined, then per instance); on the card, one more
+    round under ``device_profile`` (after every check and count).
+    Returns numpy results and the rank's launches, times and peak
+    memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed, hier
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import registry
+    from repro_torch.launch import ingest
+    dev = mesh.device
+    sr = sr_mod.get(sr_name)
+    sig = ingest.signature(args)
+    states = distributed.shard(mesh, distributed.create_instances(
+        args.instances, sig.cuts, args.block_size, sr=sr, device=dev))
+    step = distributed.sharded_ingest_fn(mesh, FLEET_AXES, sr=sr,
+                                         **ingest.ingest_knobs(sig))
+    registry.reset_launches()
+    _peak_reset(torch, dev)
+    walls, own = [], 0.0
+    for rnd in range(args.rounds):
+        rows, cols, vals = (distributed.shard(mesh, x) for x in
+                            fleet_round(torch, args, rnd, dev, tropical))
+        _sync(torch, dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        states, _ = step(states, rows, cols, vals)
+        _sync(torch, dev)
+        own += time.perf_counter() - t0
+        dist.barrier()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(ingest=registry.launches())
+    count = distributed.aggregate_update_counts_fn(mesh, FLEET_AXES)(states)
+    hist = distributed.global_degree_histogram_fn(
+        mesh, FLEET_AXES, 1 << args.scale, FLEET_BINS, sr)(states)
+    q_rows, q_cols = (torch.as_tensor(x, device=dev) for x in queries)
+    out = {}
+    for per in (False, True):
+        registry.reset_launches()
+        out[per] = distributed.sharded_query_fn(
+            mesh, FLEET_AXES, sr=sr, use_kernel=True, l0_mode="canon",
+            per_instance=per)(states, q_rows, q_cols).cpu().numpy()
+        launches["per_instance" if per else "query"] = registry.launches()
+    n_local = states.spills.shape[0]
+    res = dict(rank=mesh.rank, device=str(dev),
+               state=hier.state_to_numpy(states), count=count,
+               hist=hist.cpu().numpy(), comb=out[False], per=out[True],
+               launches=launches, walls=walls, own_s=own,
+               updates=n_local * (args.blocks // args.rounds)
+               * args.block_size * args.rounds,
+               peak_gib=_peak_gib(torch, dev), profile=None)
+    if dev.type == "cuda":
+        rows, cols, vals = (distributed.shard(mesh, x) for x in
+                            fleet_round(torch, args, args.rounds, dev,
+                                        tropical))
+        _sync(torch, dev)
+        dist.barrier()
+        res["profile"] = device_profile(
+            torch, lambda: step(states, rows, cols, vals))
+        dist.barrier()
+    return res
+
+
+def _check_fleet(np, got: list, want: dict, what: str) -> None:
+    """Phase 12's exact checks of one run's ranks against ``want``."""
+    for k, v in want["state"].items():
+        if k == "cuts":
+            continue
+        joined = np.concatenate([r["state"][k] for r in got])
+        if not np.array_equal(joined, v):
+            raise AssertionError(f"{what}: {k} of the ranks' blocks != the "
+                                 f"single-process fleet's")
+    if not np.array_equal(np.concatenate([r["per"] for r in got]),
+                          want["per"]):
+        raise AssertionError(f"{what}: per-instance lookups differ")
+    for r in got:
+        if r["count"] != want["count"]:
+            raise AssertionError(f"{what}: rank {r['rank']} counts "
+                                 f"{r['count']}, not {want['count']}")
+        if not np.array_equal(r["hist"], want["hist"]):
+            raise AssertionError(f"{what}: rank {r['rank']} histogram "
+                                 f"{r['hist'].tolist()} != "
+                                 f"{want['hist'].tolist()}")
+        if not np.array_equal(r["comb"], want["comb"]):
+            raise AssertionError(f"{what}: rank {r['rank']} combined "
+                                 f"lookups differ")
+
+
+def fleet_run(torch, args, sr_name: str, tropical: bool, want: dict,
+              queries, backend: str, ranks: int, device, tmp: str,
+              launches: dict, card: str) -> dict:
+    """One fleet of ``ranks`` ranks: spawned, held to ``want`` and to the
+    single-process ``launches`` (ingest merges summed over the ranks; one
+    ``merge_multi`` per instance for each canon query call; every rank
+    launched ``merge_multi`` where the single process did).  Returns the
+    rates, peaks and launches it printed."""
+    import numpy as np
+    from repro_torch.launch import mesh as fleet_mesh
+    what = f"{sr_name} fleet, {backend}, P={ranks}"
+    t0 = time.perf_counter()
+    got = fleet_mesh.spawn_fleet(fleet_rank, ranks, backend, device, tmp,
+                                 args=(args, sr_name, tropical, queries))
+    wall = time.perf_counter() - t0
+    _check_fleet(np, got, want, what)
+    on_card = torch.device(device).type == "cuda"
+    for name in ("hier_merge.merge_multi", "assoc.sort_route"):
+        total = sum(r["launches"]["ingest"][name] for r in got)
+        if total != launches[name]:
+            raise AssertionError(f"{what}: {total} {name} calls by the "
+                                 f"ranks, {launches[name]} by one process")
+    for kind in ("query", "per_instance"):
+        total = sum(r["launches"][kind]["hier_merge.merge_multi"]
+                    for r in got)
+        if total != (args.instances if on_card else 0):
+            raise AssertionError(f"{what}: {kind} canon lookups launched "
+                                 f"merge_multi {total} times")
+    if on_card and not all(r["launches"]["ingest"]["hier_merge.merge_multi"]
+                           for r in got):
+        raise AssertionError(f"{what}: a rank never launched merge_multi")
+    total_updates = sum(r["updates"] for r in got)
+    rank0_wall = sum(got[0]["walls"])
+    profiled = None
+    if on_card:
+        # kernels of different processes do not overlap on a card without
+        # MPS, so the device times of the ranks on one card add up
+        wall_ms = max(r["profile"]["wall_ms"] for r in got)
+        busy = {}
+        for r in got:
+            busy[r["device"]] = busy.get(r["device"], 0.0) \
+                + r["profile"]["device_ms"] / wall_ms
+        profiled = dict(wall_ms=wall_ms,
+                        device_ms=sum(r["profile"]["device_ms"]
+                                      for r in got),
+                        card_busy_share=busy,
+                        rank_device_ms=[r["profile"]["device_ms"]
+                                        for r in got],
+                        rank0_top=got[0]["profile"]["top"])
+    res = dict(
+        backend=backend, ranks=ranks, devices=[r["device"] for r in got],
+        updates=total_updates, updates_per_s=total_updates / rank0_wall,
+        round_walls_s=got[0]["walls"],
+        rank_updates_per_s=[r["updates"] / r["own_s"] for r in got],
+        rank_peak_gib=[r["peak_gib"] for r in got], phase_wall_s=wall,
+        profiled_round=profiled,
+        merge_multi=sum(r["launches"][k]["hier_merge.merge_multi"]
+                        for r in got for k in ("ingest", "query",
+                                               "per_instance")))
+    print(f"{what}: {res['updates_per_s']:.1f} updates/s aggregate "
+          f"({total_updates} updates over {rank0_wall:.4f} s of rounds); "
+          f"per rank {[round(x, 1) for x in res['rank_updates_per_s']]} "
+          f"updates/s; peak GiB {res['rank_peak_gib']}; merge_multi "
+          f"{res['merge_multi']} (ingest + 2 x {args.instances} canon "
+          f"lookups); wall {wall:.2f} s; every check exact; {card}",
+          flush=True)
+    if profiled:
+        print(f"{what}: one more round under the profiler: wall "
+              f"{profiled['wall_ms']:.2f} ms (slowest rank), kernels "
+              f"{profiled['device_ms']:.2f} ms summed over the ranks, busy "
+              f"share of each card {profiled['card_busy_share']}; {card}",
+              flush=True)
+    return res
+
+
+def fleet_phase(torch, main: dict, small, device, tmp: str, runs,
+                card: str) -> dict:
+    """Phase 12: phase 4's fleet (``main``: its command line, the
+    single-process answers, queries and launches) on each ``(backend, P)``
+    of ``runs`` (gloo ranks share the card, nccl puts one on each); then
+    a max.plus and a min.plus fleet at ``small``'s size on 2 gloo ranks
+    against one process."""
+    from repro_torch.core import distributed, stream
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import registry
+    from repro_torch.launch import ingest
+    res = dict(runs=[])
+    for backend, ranks in runs:
+        res["runs"].append(fleet_run(
+            torch, main["args"], "plus.times", False, main["want"],
+            main["queries"], backend, ranks, device, tmp,
+            main["launches"], card))
+    sig = ingest.signature(small)
+    for sr_name in ("max.plus", "min.plus"):
+        sr = sr_mod.get(sr_name)
+        states = distributed.create_instances(
+            small.instances, sig.cuts, small.block_size, sr=sr,
+            device=device)
+        registry.reset_launches()
+        for rnd in range(small.rounds):
+            states, _ = stream.ingest_instances(
+                states, *fleet_round(torch, small, rnd, device, True),
+                sr=sr, **ingest.ingest_knobs(sig))
+        launches = registry.launches()
+        queries = fleet_queries(torch, states, FLEET_QUERIES, small.scale, 12)
+        want = fleet_expected(torch, states, sr, queries, 1 << small.scale)
+        res[sr_name] = fleet_run(torch, small, sr_name, True, want, queries,
+                                 "gloo", 2, device, tmp, launches, card)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2013,13 +2314,14 @@ def main() -> int:
     numbers = kernel_phase(torch, registry, hm, assoc, sr_mod)
     t0 = time.perf_counter()
     mesh = graphs.icosahedral_multimesh(6)
-    print(f"multimesh r=6: {len(mesh[0])} nodes, {len(mesh[1])} edges in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"multimesh r=6: {len(mesh[0])} nodes, {len(mesh[1])} edges "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
     cora = GNN_SHAPES["full_graph_sm"]
     gat_graph = graphs.random_graph(6, cora["n_nodes"], cora["n_edges"],
                                     cora["d_feat"], cora["n_classes"],
                                     device="cuda")
-    numbers.update(path_kernel_phase(torch, mesh, gat_graph["edge_dst"]))
+    numbers.update(path_kernel_phase(torch, mesh,
+                                     gat_graph["edge_dst"]))
 
     phase("4 main path: d4m_stream geometry, fused, lazy layer 0, grouped, "
           "kernel")
@@ -2093,7 +2395,12 @@ def main() -> int:
                                  f"after flush")
     print(f"point lookups: {n_inst} x (4096 canon + 32 scan) == after flush; "
           f"launches of the lookups {query_launches}", flush=True)
-
+    # phase 12's single-process answers, kept on the host
+    queries = fleet_queries(torch, states, FLEET_QUERIES, 22, 11)
+    fleet_main = dict(args=ingest_args(), queries=queries,
+                      launches=main_launches,
+                      want=fleet_expected(torch, states, sr_mod.PLUS_TIMES,
+                                          queries, 1 << 22))
     phase("5 kernel route == sort route, end to end")
     out_sort, states_sort = ingest.run_with_state(
         ingest_args(use_kernel=False))
@@ -2210,6 +2517,35 @@ def main() -> int:
     print(f"phase 11 wall {time.perf_counter() - t0:.1f} s; {card}",
           flush=True)
 
+    phase("12 the fleet across ranks: phase 4's fleet on P gloo ranks "
+          "sharing the card (nccl: one rank a card), fleet counter, degree "
+          "histogram, point lookups; max.plus and min.plus fleets")
+    del tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cores = len(os.sched_getaffinity(0))
+    runs = [("gloo", p) for p in (1, 2, 4, 8) if p <= 4 or cores >= 8]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs.append(("nccl", min(n_cards, 4)))
+    print(f"{cores} cores for this process: gloo P in "
+          f"{[p for b, p in runs if b == 'gloo']}; "
+          + (f"nccl P={min(n_cards, 4)}" if n_cards >= 2 else
+             f"nccl not run: {n_cards} card, it needs 2 or more"),
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = fleet_phase(
+            torch, fleet_main,
+            ingest_args(instances=8, blocks=32, rounds=4, lazy_l0="off"),
+            "cuda", tmp, runs, card)
+    print(json.dumps(fleet), flush=True)
+    print(f"phase 12 wall {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
+    fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
+                      for r in fleet["runs"]}
+    fleet_launches.update({f"{s} gloo P=2": fleet[s]["merge_multi"]
+                           for s in ("max.plus", "min.plus")})
+
     kernels = []
     for name, source, replaces, launches in (
             ("hier_merge.merge_multi", "hier_merge/csrc/hier_merge.cu",
@@ -2236,6 +2572,8 @@ def main() -> int:
             kernels_per_call=rec.get("kernels_per_call")))
         kernels[-1].update({k: v for k, v in rec.items()
                             if k not in kernels[-1] and k != "ops_kernels"})
+    # phase 12's launches, summed over each fleet's ranks
+    kernels[0]["phase12_launches"] = fleet_launches
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,10 @@ checkout (listed in ``.gitignore``), with
 and loads with ``ctypes``.  A library newer than its source is reused.
 ``build_all`` starts one ``nvcc`` per stale source, all at once, and waits
 for them; the compiler's output (``-Xptxas=-v``: registers, shared memory
-and spills per kernel) is kept in ``LOG``.  Nothing here runs at import.
+and spills per kernel) is kept in ``LOG``.  Each build writes to a
+``.<pid>.tmp`` file renamed over the library when it succeeds, so the
+ranks of a fleet that find a source stale at once never write the same
+path, nor load a half-written library.  Nothing here runs at import.
 """
 from __future__ import annotations
 

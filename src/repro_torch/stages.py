@@ -2,15 +2,17 @@
 
 A ``Signature`` is the canonical, hashable form of every knob that changes
 what an entry point runs (cuts, block_size, dtype, semiring, fused /
-lazy_l0 / use_kernel / chunk, batch_mode, query l0_mode).  ``signature_of``
-is the single validator: an invalid combination fails with the same
-``invalid d4m config signature: ...`` message at every entry point, as in
-the JAX package.  The port runs eagerly, so there is no compile cache here.
+lazy_l0 / use_kernel / chunk, batch_mode, query l0_mode, the mesh and data
+axes of the sharded fleet functions, entry-specific ``extra`` knobs).
+``signature_of`` is the single validator: an invalid combination fails
+with the same ``invalid d4m config signature: ...`` message at every entry
+point, as in the JAX package.  The port runs eagerly, so there is no
+compile cache here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +27,10 @@ L0_MODES = ("auto", "scan", "canon")
 class Signature:
     """Canonical, hashable config signature.
 
-    ``None`` fields mean "not pinned by this entry point".
+    ``None`` fields mean "not pinned by this entry point".  ``mesh`` is
+    the ``((axis name, size), ...)`` form of a ``launch.mesh.FleetMesh``
+    (``(("data", P),)``); ``extra`` holds entry-specific knobs as a
+    ``((name, value), ...)`` tuple.
     """
     cuts: Optional[Tuple[int, ...]] = None
     block_size: Optional[int] = None
@@ -36,7 +41,10 @@ class Signature:
     use_kernel: bool = False
     chunk: int = 1
     batch_mode: Optional[str] = None
+    mesh: Tuple[Tuple[str, int], ...] = ()
+    data_axes: Tuple[str, ...] = ()
     l0_mode: Optional[str] = None
+    extra: Tuple[Tuple[str, Any], ...] = ()
 
 
 def _invalid(msg: str) -> ValueError:
@@ -55,15 +63,18 @@ def dtype_name(dtype) -> str:
 
 def signature_of(*, cuts=None, block_size=None, dtype="float32", sr=None,
                  fused=True, lazy_l0=False, use_kernel=False, chunk=1,
-                 batch_mode=None, l0_mode=None,
+                 batch_mode=None, mesh=None, data_axes=None, l0_mode=None,
+                 extra=(),
                  allowed_batch_modes: Optional[Tuple[str, ...]] = None
                  ) -> Signature:
     """Canonicalize + validate a knob set into a ``Signature``.
 
     Bad cuts, unknown semirings/dtypes, ``lazy_l0`` outside plus.times,
-    and batch modes outside ``allowed_batch_modes`` (default: all of
-    ``BATCH_MODES``) all raise the same ``invalid d4m config signature:
-    ...`` ValueError at every entry point.
+    batch modes outside ``allowed_batch_modes`` (default: all of
+    ``BATCH_MODES``), and ``data_axes`` that are not distinct axes of
+    ``mesh`` (a ``FleetMesh`` or its ``((name, size), ...)`` form) all
+    raise the same ``invalid d4m config signature: ...`` ValueError at
+    every entry point.
     """
     fused, lazy_l0, use_kernel = bool(fused), bool(lazy_l0), bool(use_kernel)
     if cuts is not None:
@@ -103,10 +114,20 @@ def signature_of(*, cuts=None, block_size=None, dtype="float32", sr=None,
     if l0_mode is not None and l0_mode not in L0_MODES:
         raise _invalid(f"l0_mode must be one of {L0_MODES}, "
                        f"got {l0_mode!r}")
+    if mesh is not None and not isinstance(mesh, tuple):
+        mesh = tuple(zip(mesh.axis_names, (mesh.size,)))
+    mesh = tuple((str(a), int(n)) for a, n in mesh or ())
+    data_axes = tuple(data_axes or ())
+    names = tuple(a for a, _ in mesh)
+    if any(a not in names for a in data_axes) \
+            or len(set(data_axes)) != len(data_axes):
+        raise _invalid(f"data_axes must be distinct axes of the mesh "
+                       f"{names}, got {data_axes}")
     return Signature(cuts=cuts, block_size=block_size, dtype=dtype,
                      sr=sr_name, fused=fused, lazy_l0=lazy_l0,
                      use_kernel=use_kernel, chunk=chunk,
-                     batch_mode=batch_mode, l0_mode=l0_mode)
+                     batch_mode=batch_mode, mesh=mesh, data_axes=data_axes,
+                     l0_mode=l0_mode, extra=tuple(extra))
 
 
 def signature_for_state(h, **kw) -> Signature:

@@ -154,3 +154,42 @@ def test_train_phase_on_cpu(tmp_path):
     # the card-vs-CPU comparison's own code, with the CPU standing in
     xdev = chip_smoke.cross_device_checks(torch, card="cpu")
     assert all(v["params_max_rel_err"] == 0.0 for v in xdev.values())
+
+
+def test_fleet_phase_on_cpu(tmp_path):
+    """Phase 12 at smoke size on gloo ranks on the CPU: phase 4's fleet
+    (here 4 instances, cuts 64,256,1024, block 32, 16 blocks in 4 rounds)
+    on P = 1, 2 and 4 ranks, each rank's block equal to the single-process
+    fleet leaf for leaf, the fleet counter, the degree histogram, the
+    combined and per-instance canon lookups exact, the ranks' merges
+    summed equal to one process's (the plain versions count none); then
+    the max.plus and min.plus fleets on 2 ranks."""
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import registry
+    from repro_torch.launch import ingest
+    kw = dict(block_size=32, cuts="64,256,1024", scale=10, device="cpu")
+    args = chip_smoke.ingest_args(instances=4, blocks=16, rounds=4, **kw)
+    registry.reset_launches()
+    out, states = ingest.run_with_state(args)
+    queries = chip_smoke.fleet_queries(torch, states, 256, 10, 11)
+    assert (queries[0] < 1 << 10).all() and queries[0].shape == (256,)
+    main = dict(args=args, queries=queries, launches=registry.launches(),
+                want=chip_smoke.fleet_expected(torch, states,
+                                               sr_mod.PLUS_TIMES, queries,
+                                               1 << 10))
+    assert main["want"]["count"] == out["n_updates_counter"] == 4 * 16 * 32
+    assert main["want"]["hist"].sum() > 0
+    small = chip_smoke.ingest_args(instances=4, blocks=8, rounds=2,
+                                   lazy_l0="off", **kw)
+    res = chip_smoke.fleet_phase(
+        torch, main, small, "cpu", str(tmp_path),
+        [("gloo", 1), ("gloo", 2), ("gloo", 4)], "cpu")
+    assert [r["ranks"] for r in res["runs"]] == [1, 2, 4]
+    for r in res["runs"]:
+        assert r["updates"] == 4 * 16 * 32 and r["updates_per_s"] > 0
+        assert len(r["rank_updates_per_s"]) == r["ranks"]
+        assert r["rank_peak_gib"] == [None] * r["ranks"]   # the card only
+        assert r["merge_multi"] == 0                 # plain versions
+    for sr_name in ("max.plus", "min.plus"):
+        assert res[sr_name]["ranks"] == 2
+        assert res[sr_name]["updates"] == 4 * 8 * 32

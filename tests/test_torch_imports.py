@@ -204,3 +204,33 @@ def test_training_modules_import_no_jax_and_default_to_cuda(monkeypatch):
         train.run(train.make_args(arch="dcn-v2"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dcn.hier_embed_init(registry.get_smoke_config("dcn-v2"), 4)
+
+
+def test_fleet_modules_import_no_jax(monkeypatch, tmp_path):
+    """The fleet-across-ranks layer (``launch/mesh.py``,
+    ``core/distributed.py``) imports neither JAX nor anything of the JAX
+    package (each file, and in a fresh process); a fleet's ranks default
+    to the card and raise without one, and nccl refuses more ranks than
+    cards before it starts any."""
+    for name in ("launch/mesh.py", "core/distributed.py", "stages.py"):
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "import repro_torch.launch.mesh, repro_torch.core.distributed\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    from repro_torch.launch import mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh._rank_device("gloo", None, 0)
+    assert mesh._rank_device("gloo", "cpu", 3) == torch.device("cpu")
+    with pytest.raises(ValueError, match="nccl runs one rank per card"):
+        mesh.spawn_fleet(print, 1, "nccl", None, str(tmp_path))
+    with pytest.raises(ValueError, match="nccl runs on CUDA devices"):
+        mesh._rank_device("nccl", "cpu", 0)

@@ -98,3 +98,47 @@ def both(*arrays):
     import jax.numpy as jnp
     return (tuple(jnp.asarray(a) for a in arrays),
             tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays))
+
+
+def _numpy_tree(x):
+    """Tensors (nested in dicts) as numpy arrays."""
+    if isinstance(x, dict):
+        return {k: _numpy_tree(v) for k, v in x.items()}
+    return x.cpu().numpy()
+
+
+def run_fleet_jobs(mesh, jobs):
+    """A rank's body for ``launch.mesh.spawn_fleet``: run every job of
+    ``jobs`` (``(kind, knobs, inputs)``; fleet-wide numpy inputs, the
+    state as the converter's dict) on this rank's block through the port's
+    sharded functions, in order, so every rank makes the same collectives.
+    Returns one numpy result per job."""
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core import semiring as tsr
+    torch.set_num_threads(1)
+    axes = ("data",)
+    out = []
+    for kind, knobs, inputs in jobs:
+        states = tdist.shard(mesh, thier.state_from_numpy(
+            inputs["states"], device=mesh.device))
+        knobs = dict(knobs)
+        if "sr" in knobs:
+            knobs["sr"] = tsr.get(knobs["sr"])
+        if kind == "ingest":
+            rows, cols, vals = (tdist.shard(mesh, torch.from_numpy(x))
+                                for x in inputs["stream"])
+            got, tel = tdist.sharded_ingest_fn(mesh, axes, **knobs)(
+                states, rows, cols, vals)
+            out.append((thier.state_to_numpy(got), _numpy_tree(tel)))
+        elif kind == "query":
+            q_rows, q_cols = map(torch.from_numpy, inputs["queries"])
+            out.append(tdist.sharded_query_fn(mesh, axes, **knobs)(
+                states, q_rows, q_cols).numpy())
+        elif kind == "histogram":
+            out.append(tdist.global_degree_histogram_fn(mesh, axes, **knobs)(
+                states).numpy())
+        elif kind == "count":
+            out.append(tdist.aggregate_update_counts_fn(mesh, axes)(states))
+        else:
+            raise ValueError(f"unknown fleet job {kind!r}")
+    return out
