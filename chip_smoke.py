@@ -128,7 +128,26 @@ caught and passed over):
    and one more round in every rank under ``torch.profiler``, after the
    checks: the kernel time of a card's ranks summed over the slowest
    rank's wall is that card's busy share (kernels of separate processes
-   do not overlap).
+   do not overlap);
+13. LM serving through ``launch/serve`` (``serve_phase``), no kernel
+   launched: (a) each LM arch's smoke config in float32 (TF32 off), one
+   tree drawn on the CPU and copied to the card, prefill of [2, 16]
+   prompts and 4 greedy steps on both, the last logits and every cache
+   leaf within rtol 1e-4 / atol 1e-5 and the tokens equal; (b)
+   ``granite-moe-3b-a800m``'s ``config()`` whole (32 layers, bf16, 6.6 GB
+   drawn on the card) through ``serve.run_with_state`` at the CLI's
+   defaults (batch 8, prompt 64, gen 32) after an untimed warm-up, then at
+   prompt 1024, the decode loop under ``set_sync_debug_mode("error")``
+   (and that guard shown to refuse a host read); (c) its decode == the
+   teacher-forced ``forward`` in float32 with drop-free routing (capacity
+   factor 8, or n_experts / top_k where larger; b 2, S 12), max relative
+   error <= 1e-3 (the error at factor 8 alone is recorded, not checked); (d) ``deepseek-v2-236b`` at full width with its depth
+   cut 60 -> 4 (33.87 GB in bf16) through ``serve.run_config`` at the
+   defaults after an untimed warm-up, and its absorbed MLA decode == the
+   naive forward at 1 layer in float32.  Per run: prefill and decode
+   tok/s, decode ms a step, the weights' bytes over the card's memory
+   rate, peak GiB, and one more decode step and one more prefill under
+   ``device_profile`` (busy share, kernels, the top kernels).
 
 Phase 3 also holds both merges with float16 and bfloat16 values against
 their plain versions under the four semirings (keys and nnz exact,
@@ -152,7 +171,8 @@ the sorted messages, GAT-Cora's numbers, and under ``prev_shape`` the
 kernel on the JAX kernel's staged operands (sorted messages, padded),
 which the node-tiled kernel read.
 
-It prints the card line, one JSON line with every kernel's numbers (the
+It prints phase 13's numbers as one JSON line (``{"serve": ...}``), the
+card line, one JSON line with every kernel's numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
 the kernel took powers of two only; both merge rows carry their float16
@@ -858,6 +878,7 @@ def device_profile(torch, fn, top: int = 6) -> dict:
     device_us = sum(e.device_time_total for e in events)
     return dict(wall_ms=wall * 1e3, device_ms=device_us / 1e3,
                 device_busy_share=device_us / 1e6 / wall,
+                kernels=sum(e.count for e in events),
                 top=[dict(name=e.key[:60], calls=e.count,
                           device_ms=e.device_time_total / 1e3)
                      for e in sorted(events,
@@ -2266,6 +2287,214 @@ def fleet_phase(torch, main: dict, small, device, tmp: str, runs,
     return res
 
 
+# ------------------------------------------------------------- phase 13 --
+
+LM_ARCHS = ("deepseek-v2-236b", "granite-moe-3b-a800m", "mistral-nemo-12b",
+            "phi3-mini-3.8b", "smollm-360m")
+LM_RTOL, LM_ATOL = 1e-4, 1e-5   # card == CPU, float32 logits and caches
+DECODE_FWD_TOL = 1e-3           # decode == teacher-forced forward (f32)
+DEEPSEEK_LAYERS = 4             # deepseek-v2's depth cut: 60 -> 4
+
+
+def lm_cross_device(torch, card: str) -> dict:
+    """(a): each LM arch's smoke config in float32, one tree drawn from a
+    seed on the CPU and copied to ``card``; ``serve.generate`` of [2, 16]
+    prompts and 4 greedy steps on both: the last logits and every cache
+    leaf within rtol 1e-4 / atol 1e-5, the tokens equal."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    res = {}
+    for arch in LM_ARCHS:
+        cfg = registry.get_smoke_config(arch)
+        params = tf.init(0, cfg, device="cpu")
+        prompts = token_batch(1, 2, 16, cfg.vocab, device="cpu")["tokens"]
+        want = serve.generate(params, prompts, cfg, 4)
+        got = serve.generate(
+            tf.params_from_numpy(tf.params_to_numpy(params), card),
+            prompts.to(card), cfg, 4)
+        if not torch.equal(got["tokens"].cpu(), want["tokens"]):
+            raise AssertionError(f"{arch}: greedy tokens on {card} differ "
+                                 f"from the CPU's")
+        errs = {}
+        for name, a, b in [("logits", got["logits"], want["logits"])] + [
+                (k, got["cache"][k], want["cache"][k]) for k in want["cache"]]:
+            a = a.cpu()
+            errs[name] = float((a - b).abs().max())
+            if not torch.allclose(a, b, rtol=LM_RTOL, atol=LM_ATOL):
+                raise AssertionError(f"{arch}: {name} on {card} differs from "
+                                     f"the CPU's by {errs[name]}")
+        res[arch] = errs
+    return res
+
+
+def decode_vs_forward(torch, cfg, device) -> dict:
+    """(c): prefill of S - 2 = 10 tokens (b 2), then 2 decode steps,
+    against ``forward``'s last two positions: the max relative error,
+    raised above 1e-3.
+
+    Capacity drops differ between a one-token decode batch and the
+    forward by design (GShard), so the check routes drop-free: capacity
+    factor 8, or n_experts / top_k where that is larger, so that every
+    expert has a slot for each of the forward's 24 tokens (each token
+    picks an expert at most once).  The error at factor 8 alone is
+    recorded too, not checked: at deepseek-v2's width it leaves 8 slots
+    for the 24 tokens."""
+    import dataclasses
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    params = tf.init(2, cfg, device=device)
+    toks = token_batch(3, 2, 12, cfg.vocab, device=device)["tokens"]
+
+    def err(c):
+        _, cache, n = tf.prefill(params, toks[:, :10], c, max_len=12)
+        l1, cache = tf.decode_step(params, toks[:, 10:11], cache, n, c)
+        l2, _ = tf.decode_step(params, toks[:, 11:12], cache, n + 1, c)
+        full, _ = tf.forward(params, toks, c)
+        return max(max_rel_err(l1, full[:, -2]), max_rel_err(l2, full[:, -1]))
+    if not cfg.moe:
+        res = dict(max_rel_err=err(cfg))
+    else:
+        free = dataclasses.replace(cfg, capacity_factor=max(
+            8.0, cfg.n_experts / cfg.top_k))
+        if moe._capacity(2 * 12, tf.moe_config(free)) < 2 * 12:
+            raise AssertionError(f"{cfg.name}: capacity below 24 slots")
+        res = dict(max_rel_err=err(free),
+                   max_rel_err_factor_8=err(dataclasses.replace(
+                       cfg, capacity_factor=8.0)))
+    if not res["max_rel_err"] <= DECODE_FWD_TOL:
+        raise AssertionError(f"{cfg.name}: decode differs from forward by "
+                             f"{res['max_rel_err']} (max relative)")
+    return res
+
+
+def serve_record(torch, run, device) -> dict:
+    """One serve run (``run()`` -> ``serve.run_config``'s result and
+    state): its rates, decode ms a step, peak GiB, the weights' bytes over
+    the card's memory rate (the least a decode step can take: the
+    dispatch runs every expert), and on the card one more decode step
+    under ``device_profile``."""
+    from repro_torch.models import transformer as tf
+    _peak_reset(torch, device)
+    out, state = run()
+    gen = out["generated"][1] - 1
+    if not out["finite"] or out["generated"] != (state["prompts"].shape[0],
+                                                 gen + 1):
+        raise AssertionError(f"serve: {out}")
+    nbytes = sum(p.numel() * p.element_size()
+                 for p in state["params"].parameters())
+    rec = dict(out, decode_ms_per_step=out["decode_s"] / gen * 1e3,
+               peak_gib=_peak_gib(torch, device), weights_gb=nbytes / 1e9,
+               weights_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    if torch.device(device).type == "cuda":
+        tok = state["tokens"][:, -1:]
+        rec["profile"] = device_profile(torch, lambda: tf.decode_step(
+            state["params"], tok, state["cache"], state["cache_len"] - 1,
+            state["cfg"]), top=8)
+        rec["prefill_profile"] = device_profile(torch, lambda: tf.prefill(
+            state["params"], state["prompts"], state["cfg"]), top=8)
+    return rec
+
+
+def _serve_line(name: str, r: dict, card: str) -> str:
+    prof = r.get("profile")
+    busy = "".join(
+        f"; one {what} under the profiler: busy "
+        f"{p['device_busy_share']:.3f}, {p['kernels']} kernels, device "
+        f"{p['device_ms']:.2f} ms of {p['wall_ms']:.2f}"
+        for what, p in (("decode step", prof),
+                        ("prefill", r.get("prefill_profile"))) if p)
+    return (f"{name}: prefill {r['prefill_tok_s']:.1f} tok/s "
+            f"({r['prefill_s']:.4f} s), decode {r['decode_tok_s']:.1f} tok/s "
+            f"({r['decode_ms_per_step']:.3f} ms a step; weights "
+            f"{r['weights_gb']:.3f} GB, bound {r['weights_bound_ms']:.3f} "
+            f"ms), generated {r['generated']}, peak {r['peak_gib']} GiB"
+            f"{busy}; {card}")
+
+
+def serve_phase(torch, device, card: str, *, smoke: bool = False) -> dict:
+    """Phase 13: LM serving through ``launch/serve``.  (a) card == CPU at
+    smoke size, five archs; (b) granite-moe-3b-a800m's ``config()``, whole,
+    at the CLI's defaults (batch 8, prompt 64, gen 32) after an untimed
+    warm-up, then at prompt 1024; (c) its decode == forward in float32,
+    routing drop-free; (d) deepseek-v2-236b at full width with its
+    depth cut to 4 layers, served at the defaults after a warm-up, and the
+    absorbed MLA
+    decode == the naive forward at 1 layer in float32.  ``smoke`` runs
+    (b)-(d) on the smoke configs at small sizes (the CPU rehearsal)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import registry as kreg
+    from repro_torch.launch import serve
+    if torch.device(device).type == "cuda":
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on")
+        syncs_refused(torch, serve, device)
+    kreg.reset_launches()
+    res = dict(cross_device=lm_cross_device(torch, device))
+    print(f"(a) card == CPU, smoke configs, float32: max abs errors "
+          f"{json.dumps(res['cross_device'])}", flush=True)
+
+    size = dict(batch=2, prompt_len=16, gen=4) if smoke else {}
+    long = dict(size, prompt_len=32 if smoke else 1024)
+    granite = "granite-moe-3b-a800m"
+
+    def granite_run(**kw):
+        return serve.run_with_state(serve.make_args(
+            arch=granite, smoke=smoke, device=device, **kw))
+    granite_run(**size)                                   # warm-up
+    for key, kw in (("granite", size), ("granite_long", long)):
+        res[key] = serve_record(torch, lambda: granite_run(**kw), device)
+        print("(b) " + _serve_line(f"{granite} {key}", res[key], card),
+              flush=True)
+
+    get = registry.get_smoke_config if smoke else registry.get_config
+    f32 = dict(dtype="float32")
+    _peak_reset(torch, device)
+    res["granite_decode_vs_forward"] = decode_vs_forward(
+        torch, dataclasses.replace(get(granite), **f32), device)
+    print(f"(c) {granite} float32 decode == forward (drop-free routing): "
+          f"max relative error {res['granite_decode_vs_forward']}, peak "
+          f"{_peak_gib(torch, device)} GiB; {card}", flush=True)
+
+    ds = get("deepseek-v2-236b")
+    if not smoke:
+        ds = dataclasses.replace(ds, n_layers=DEEPSEEK_LAYERS)
+    res["deepseek_params"] = ds.n_params
+    ds_args = serve.make_args(device=device, **size)
+    serve.run_config(ds, ds_args)                         # warm-up
+    res["deepseek"] = serve_record(
+        torch, lambda: serve.run_config(ds, ds_args), device)
+    print(f"(d) " + _serve_line(f"deepseek-v2-236b {ds.n_layers} layers, "
+                                f"{ds.n_params} params", res["deepseek"],
+                                card), flush=True)
+    _peak_reset(torch, device)
+    res["deepseek_decode_vs_forward"] = decode_vs_forward(
+        torch, dataclasses.replace(ds, n_layers=1, **f32), device)
+    print(f"(d) deepseek-v2-236b 1 layer float32 absorbed MLA decode == "
+          f"naive forward (drop-free routing): max relative error "
+          f"{res['deepseek_decode_vs_forward']}, peak "
+          f"{_peak_gib(torch, device)} GiB; {card}", flush=True)
+    res["launches"] = kreg.launches()
+    if any(res["launches"].values()):
+        raise AssertionError(f"LM serving launched a kernel: "
+                             f"{res['launches']}")
+    return res
+
+
+def syncs_refused(torch, serve, device) -> None:
+    """Inside ``serve.no_host_sync`` (the decode loop's guard) a host read
+    of a device value must raise."""
+    try:
+        with serve.no_host_sync(torch.device(device)):
+            torch.ones(1, device=device).item()
+    except RuntimeError:
+        return
+    raise AssertionError("no_host_sync let a host sync through")
+
+
 def main() -> int:
     try:
         import torch
@@ -2541,6 +2770,16 @@ def main() -> int:
     print(json.dumps(fleet), flush=True)
     print(f"phase 12 wall {time.perf_counter() - t0:.1f} s; {card}",
           flush=True)
+
+    phase("13 LM serving through launch/serve: card == CPU for five archs, "
+          "granite-moe-3b-a800m whole, decode == forward, deepseek-v2-236b "
+          f"at {DEEPSEEK_LAYERS} layers")
+    del gc_graph, gat_graph, fleet_main
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = serve_phase(torch, "cuda", card)
+    served["wall_s"] = time.perf_counter() - t0
+    print(f"phase 13 wall {served['wall_s']:.1f} s; {card}", flush=True)
     fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
                       for r in fleet["runs"]}
     fleet_launches.update({f"{s} gloo P=2": fleet[s]["merge_multi"]
@@ -2575,6 +2814,7 @@ def main() -> int:
     # phase 12's launches, summed over each fleet's ranks
     kernels[0]["phase12_launches"] = fleet_launches
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"serve": served, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,105 @@
 """Config dataclasses and input-shape tables of the families the port runs.
 
-A copy of the GNN, RecSys and D4M parts of ``repro/configs/base.py``: the same
-field names, defaults and derived properties, so ``dataclasses.asdict`` of
-a port config equals the reference's.  Pure data, no torch.
+A copy of ``repro/configs/base.py``: the same field names, defaults and
+derived properties, so ``dataclasses.asdict`` of a port config equals the
+reference's, and the same shape tables.  Pure data, no torch.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+# ------------------------------------------------------------------ LM ------
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    attn: str = "gqa"                  # "gqa" | "mla"
+    # --- MLA (DeepSeek-V2) ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # --- MoE ---
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    moe_shard: str = "ep"              # "ep" (experts over model) | "tp"
+    # --- misc ---
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    remat: bool = True
+    attn_chunk: int = 512
+    num_microbatches: int = 1          # grad-accumulation inside train_step
+    grad_accum_dtype: str = "float32"  # bf16 halves the accumulator (±3 bits)
+    prefill_microbatch: int = 0        # 0 = whole batch in one pass
+    scan_layers: bool = True           # False: unrolled (dry-run flop probes)
+    layout: str = "2d"                 # "2d" = FSDP x TP | "dp" = pure DP
+
+    family: str = dataclasses.field(default="lm", init=False)
+
+    @property
+    def n_params(self) -> int:
+        """Total parameter count (exact, matches init)."""
+        d, v = self.d_model, self.vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.attn == "mla":
+            h = self.n_heads
+            qk = (self.q_lora_rank and
+                  d * self.q_lora_rank
+                  + self.q_lora_rank * h * (self.qk_nope_dim + self.qk_rope_dim)
+                  ) or d * h * (self.qk_nope_dim + self.qk_rope_dim)
+            attn = (qk + d * (self.kv_lora_rank + self.qk_rope_dim)
+                    + self.kv_lora_rank * h * (self.qk_nope_dim + self.v_head_dim)
+                    + h * self.v_head_dim * d)
+        else:
+            attn = d * self.n_heads * self.d_head \
+                + 2 * d * self.n_kv_heads * self.d_head \
+                + self.n_heads * self.d_head * d
+        if self.moe:
+            ffn = (d * self.n_experts                       # router
+                   + 3 * self.n_experts * d * self.d_ff_expert
+                   + 3 * self.n_shared * d * self.d_ff_expert)
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = attn + ffn + 2 * d                       # + 2 norms
+        return emb + self.n_layers * per_layer + d           # + final norm
+
+    @property
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: routed top-k + shared only)."""
+        if not self.moe:
+            return self.n_params
+        d = self.d_model
+        routed_all = 3 * self.n_experts * d * self.d_ff_expert
+        routed_act = 3 * self.top_k * d * self.d_ff_expert
+        return self.n_params - self.n_layers * (routed_all - routed_act)
+
+
+# LM shapes: seq_len x global_batch.  decode_* / long_* lower serve_step.
+LM_SHAPES = {
+    "train_4k":    dict(kind="train",   seq=4096,    batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768,   batch=32),
+    "decode_32k":  dict(kind="decode",  seq=32768,   batch=128),
+    # long_500k needs sub-quadratic attention; every LM arch here is
+    # full softmax attention (GQA/MLA), so this cell is a documented skip.
+    "long_500k":   dict(kind="decode",  seq=524288,  batch=1,
+                        requires_subquadratic=True),
+}
+
 
 # ------------------------------------------------------------------ GNN -----
 
@@ -130,3 +222,20 @@ class D4MConfig:
         for a wider block) and a stream length it divides — else 1."""
         c = max(self.chunk, 1)
         return c if self.fused and blocks % c == 0 else 1
+
+
+D4M_SHAPES = {
+    # one device-step of the paper's experiment at three block regimes
+    "ingest_small":  dict(kind="ingest", block_size=1024, blocks=8),
+    "ingest_paper":  dict(kind="ingest", block_size=100_000, blocks=10),
+    "ingest_wide":   dict(kind="ingest", block_size=8192, blocks=64),
+    "query":         dict(kind="query"),
+}
+
+
+SHAPES_BY_FAMILY = {
+    "lm": LM_SHAPES,
+    "gnn": GNN_SHAPES,
+    "recsys": RECSYS_SHAPES,
+    "d4m": D4M_SHAPES,
+}

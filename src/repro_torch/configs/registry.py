@@ -1,9 +1,8 @@
-"""Arch registry: arch id -> config module, for the families the port runs.
+"""Arch registry: arch id -> config module, for every arch of the reference.
 
-Every ported architecture is a module exposing ``config()`` (the full-size
-config) and ``smoke_config()`` (a reduced same-family config for CPU
-tests).  The reference's other archs are known by name and refused with a
-``ValueError`` saying they are not ported yet.
+Every architecture is a module exposing ``config()`` (the full-size config)
+and ``smoke_config()`` (a reduced same-family config for CPU tests), as in
+``repro/configs/registry.py``.
 """
 from __future__ import annotations
 
@@ -11,6 +10,12 @@ import importlib
 from typing import List
 
 ARCHS = {
+    # LM family (5)
+    "deepseek-v2-236b":     ("lm", "repro_torch.configs.deepseek_v2_236b"),
+    "granite-moe-3b-a800m": ("lm", "repro_torch.configs.granite_moe_3b_a800m"),
+    "mistral-nemo-12b":     ("lm", "repro_torch.configs.mistral_nemo_12b"),
+    "phi3-mini-3.8b":       ("lm", "repro_torch.configs.phi3_mini_3_8b"),
+    "smollm-360m":          ("lm", "repro_torch.configs.smollm_360m"),
     # GNN family (4)
     "gat-cora":             ("gnn", "repro_torch.configs.gat_cora"),
     "gin-tu":               ("gnn", "repro_torch.configs.gin_tu"),
@@ -22,20 +27,8 @@ ARCHS = {
     "d4m-stream":           ("d4m", "repro_torch.configs.d4m_stream"),
 }
 
-# archs of the reference whose family the port does not run yet
-NOT_PORTED = {
-    "deepseek-v2-236b": "lm",
-    "granite-moe-3b-a800m": "lm",
-    "mistral-nemo-12b": "lm",
-    "phi3-mini-3.8b": "lm",
-    "smollm-360m": "lm",
-}
-
 
 def _entry(arch: str):
-    if arch in NOT_PORTED:
-        raise ValueError(f"arch {arch!r} ({NOT_PORTED[arch]} family) is not "
-                         f"ported yet; ported: {sorted(ARCHS)}")
     try:
         return ARCHS[arch]
     except KeyError:

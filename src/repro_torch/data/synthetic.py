@@ -1,6 +1,7 @@
-"""Synthetic recsys streams: a Criteo-style click stream (13 dense + 26
-categorical fields) with a planted logistic teacher, and the retrieval
-shape — the port of ``repro/data/synthetic.py``'s recsys part.
+"""Synthetic token and recsys streams: Zipf token batches for the LMs, a
+Criteo-style click stream (13 dense + 26 categorical fields) with a
+planted logistic teacher, and the retrieval shape — the port of
+``repro/data/synthetic.py``.
 
 Everything is drawn on the device from a ``torch.Generator`` seeded with
 ``seed``, with the reference's formulas; the bits differ from JAX's.
@@ -12,6 +13,33 @@ import math
 import torch
 
 from repro_torch import generator, resolve_device
+
+
+def token_batch(seed: int, batch: int, seq_len: int, vocab: int, *,
+                device=None):
+    """Zipf(1.1)-distributed token ids: tokens [B, S] int32 and labels =
+    the next token, on ``device`` (default: the CUDA device).
+
+    Id i is drawn with probability proportional to (i + 1) ** -1.1, by
+    inverting the cumulative distribution at uniform draws.
+    """
+    dev = resolve_device(device)
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float64, device=dev)
+    cdf = torch.cumsum(torch.softmax(-1.1 * torch.log(ranks), dim=0), dim=0)
+    u = torch.rand((batch, seq_len + 1), generator=generator(seed, dev),
+                   dtype=torch.float64, device=dev)
+    toks = torch.clamp(torch.searchsorted(cdf, u, right=True),
+                       max=vocab - 1).to(torch.int32)
+    return dict(tokens=toks[:, :-1], labels=toks[:, 1:])
+
+
+def token_stream(seed: int, steps: int, batch: int, seq_len: int,
+                 vocab: int, *, device=None):
+    """Host-side iterator of token batches; step i's comes from the seed
+    ``(seed << 32) | i``."""
+    for i in range(steps):
+        yield token_batch((int(seed) << 32) | i, batch, seq_len, vocab,
+                          device=device)
 
 
 def recsys_batch(seed: int, batch: int, n_dense: int = 13,

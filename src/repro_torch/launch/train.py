@@ -19,8 +19,9 @@ The supervisor loop is the reference's:
   * hierarchical sparse embedding-grad accumulation for recsys
     (``--hier-embed``): the paper's technique as an optimizer feature.
 
-Families: ``recsys`` (DCN-v2) and ``gnn``; the ``lm`` family is not ported
-yet and its archs raise ``ValueError`` (``--compress`` only touches the
+Families: ``recsys`` (DCN-v2) and ``gnn``; training of the ``lm`` family
+is not ported yet (its serving is: ``launch/serve.py``) and its archs
+raise ``ValueError`` (``--compress`` only touches the
 ``lm`` setup, as in the reference, so it is accepted and has no effect).
 The step function is called directly (the reference wraps it in its
 ``stages`` compile front door, which the port does not have yet).
@@ -121,6 +122,9 @@ def run_with_state(args):
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     fam = family(args.arch)
+    if fam == "lm":
+        raise ValueError(f"arch {args.arch!r}: training of the lm family is "
+                         f"not ported yet (serving is: launch/serve.py)")
     setup = dict(gnn=_gnn_setup, recsys=_recsys_setup)[fam]
     state, step_fn, data = setup(cfg, args, device)
 

@@ -34,11 +34,54 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                        device=gen.device).mul_(scale)
 
 
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32):
+    """[vocab, d] normal weights scaled by 0.02, drawn on ``gen``'s
+    device."""
+    return torch.randn((vocab, d), generator=gen, dtype=dtype,
+                       device=gen.device).mul_(0.02)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm over the last dim, computed in float32 and cast back to
+    ``x``'s dtype."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU FFN: down( silu(x@gate) * (x@up) ), in ``x``'s dtype."""
+    g = torch.nn.functional.silu(x @ w_gate)
+    return (g * (x @ w_up)) @ w_down
+
+
+def rope_freqs(d_head: int, theta: float = 10000.0, device=None):
+    """[d_head/2] inverse frequencies ``1 / theta ** (2i / d_head)`` in
+    float32."""
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0):
+    """Rotary embedding of x [..., S, D] at positions [..., S]
+    (broadcastable), in float32 and cast back to ``x``'s dtype; the two
+    rotated halves are the first and second half of D."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * inv                 # [..., S, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
 # A model's parameters are first described as a spec: the pytree's nesting
 # with a leaf per array, one of
 #   ("dense", d_in, d_out)    dense_init
 #   ("normal", shape, scale)  standard normal times scale
 #   ("zeros", shape)
+#   ("ones", shape)
 # ``materialize`` draws it; ``spec_shapes`` gives the shapes a converted
 # pytree must have.
 
@@ -53,7 +96,8 @@ def materialize(spec, gen: torch.Generator, dtype=torch.float32):
     if kind == "normal":
         return torch.randn(spec[1], generator=gen, dtype=dtype,
                            device=gen.device).mul_(spec[2])
-    return torch.zeros(spec[1], dtype=dtype, device=gen.device)
+    fill = torch.ones if kind == "ones" else torch.zeros
+    return fill(spec[1], dtype=dtype, device=gen.device)
 
 
 def spec_shapes(spec):
@@ -100,12 +144,17 @@ def to_tree(module: nn.Module):
 
 def tree_from_numpy(tree, device):
     """Nested dicts/lists of numpy arrays -> the same nesting of tensors on
-    ``device`` (float arrays keep their dtype)."""
+    ``device`` (float arrays keep their dtype; a bfloat16 array, numpy's
+    extension dtype from the JAX package, becomes a bfloat16 tensor)."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_from_numpy(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree)).to(device)
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def tree_to_numpy(module: nn.Module) -> dict:

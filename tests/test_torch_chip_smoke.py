@@ -1,6 +1,6 @@
-"""``chip_smoke.py``'s model phases (7: DCN-v2 serving, 8: GNN inference),
-phase 9 (the read-while-ingest service) and phase 3's segment_sum checks
-rehearsed on the CPU at small sizes: the
+"""``chip_smoke.py``'s model phases (7: DCN-v2 serving, 8: GNN inference,
+13: LM serving), phase 9 (the read-while-ingest service) and phase 3's
+segment_sum checks rehearsed on the CPU at small sizes: the
 same calls and checks as on the card, with the kernel wrappers running
 their plain versions (so no launch is counted).  The DCN-v2 kernel route
 equals the reference route exactly; the GNN kernel route adds a run that
@@ -193,3 +193,28 @@ def test_fleet_phase_on_cpu(tmp_path):
     for sr_name in ("max.plus", "min.plus"):
         assert res[sr_name]["ranks"] == 2
         assert res[sr_name]["updates"] == 4 * 8 * 32
+
+
+def test_serve_phase_on_cpu():
+    """Phase 13 at smoke size: (a) the card-vs-CPU comparison's own code
+    with the CPU standing in, five archs; (b) granite's smoke config served
+    through ``launch/serve.run_with_state`` at two prompt lengths; (c) its
+    decode == forward in float32; (d) deepseek's smoke config through
+    ``serve.run_config`` and its absorbed MLA decode == the naive forward
+    at one layer; no kernel launched."""
+    res = chip_smoke.serve_phase(torch, "cpu", "cpu", smoke=True)
+    assert sorted(res["cross_device"]) == list(chip_smoke.LM_ARCHS)
+    assert all(v == 0.0 for errs in res["cross_device"].values()
+               for v in errs.values())
+    for key in ("granite", "granite_long", "deepseek"):
+        r = res[key]
+        assert r["finite"] and r["decode_tok_s"] > 0
+        assert r["generated"] == (2, 5) and r["peak_gib"] is None
+        assert "profile" not in r                     # the card only
+    assert res["granite_long"]["prefill_s"] > 0
+    for key in ("granite_decode_vs_forward", "deepseek_decode_vs_forward"):
+        assert res[key]["max_rel_err"] <= 1e-5
+        assert res[key]["max_rel_err_factor_8"] <= 1e-5   # no drop here
+    assert res["deepseek_params"] == registry.get_smoke_config(
+        "deepseek-v2-236b").n_params
+    assert not any(res["launches"].values())

@@ -1,4 +1,4 @@
-"""Port parity: the recsys/GNN configs and registry against the JAX
+"""Port parity: the configs, shape tables and registry against the JAX
 package's, and DCN-v2 serving — ``serve_scores`` with the embedding_bag
 kernel route on and off, ``retrieval_topk`` and the parameter converters —
 against ``repro.models.dcn`` on the same JAX-initialised weights and the
@@ -42,20 +42,21 @@ def test_configs_equal_the_reference(arch):
     for get in ("get_smoke_config", "get_config"):
         t, j = getattr(tcfg, get)(arch), getattr(jcfg, get)(arch)
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
-        if t.family == "recsys":
-            for prop in ("total_rows", "padded_rows", "d_interact"):
-                assert getattr(t, prop) == getattr(j, prop)
+        props = dict(recsys=("total_rows", "padded_rows", "d_interact"),
+                     lm=("n_params", "n_active_params")).get(t.family, ())
+        for prop in props:
+            assert getattr(t, prop) == getattr(j, prop)
 
 
 def test_shape_tables_and_registry():
     assert tbase.GNN_SHAPES == jbase.GNN_SHAPES
     assert tbase.RECSYS_SHAPES == jbase.RECSYS_SHAPES
-    for fam in ("gnn", "recsys"):
+    assert tbase.LM_SHAPES == jbase.LM_SHAPES
+    assert tbase.SHAPES_BY_FAMILY == jbase.SHAPES_BY_FAMILY
+    for fam in ("lm", "gnn", "recsys"):
         assert tcfg.list_archs(fam) == jcfg.list_archs(fam)
-    assert set(tcfg.list_archs()) | set(tcfg.NOT_PORTED) == set(jcfg.ARCHS)
-    for arch in ("smollm-360m", "deepseek-v2-236b"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            tcfg.get_config(arch)
+    assert tcfg.list_archs() == jcfg.list_archs()
+    assert not hasattr(tcfg, "NOT_PORTED")
     with pytest.raises(ValueError, match="unknown arch"):
         tcfg.get_config("no-such-arch")
     assert tcfg.get_config("dcn-v2").padded_rows == 94_306_304

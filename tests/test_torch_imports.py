@@ -234,3 +234,47 @@ def test_fleet_modules_import_no_jax(monkeypatch, tmp_path):
         mesh.spawn_fleet(print, 1, "nccl", None, str(tmp_path))
     with pytest.raises(ValueError, match="nccl runs on CUDA devices"):
         mesh._rank_device("nccl", "cpu", 0)
+
+
+def test_lm_modules_import_no_jax_and_default_to_cuda(monkeypatch):
+    """The LM serving slice (configs, attention, MoE, transformer, token
+    data, ``launch/serve.py``) imports neither JAX nor anything of the JAX
+    package (each file, and in a fresh process); its entry points default
+    to cuda and raise without it."""
+    names = ["models/attention.py", "models/moe.py", "models/transformer.py",
+             "models/common.py", "data/synthetic.py", "launch/serve.py",
+             "configs/base.py", "configs/registry.py"]
+    names += [f"configs/{m}.py" for m in (
+        "smollm_360m", "granite_moe_3b_a800m", "deepseek_v2_236b",
+        "mistral_nemo_12b", "phi3_mini_3_8b")]
+    for name in names:
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "import repro_torch.models.transformer, repro_torch.launch.serve\n"
+            "from repro_torch.configs import registry\n"
+            "for a in registry.list_archs('lm'): registry.get_config(a)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = registry.get_smoke_config("smollm-360m")
+    assert serve.parser().parse_args([]).device == "cuda"
+    assert serve.make_args().device == "cuda"
+    tree = transformer.params_to_numpy(transformer.init(0, cfg,
+                                                        device="cpu"))
+    for call in (lambda: transformer.init(0, cfg),
+                 lambda: transformer.init_cache(cfg, 2, 8),
+                 lambda: transformer.params_from_numpy(tree),
+                 lambda: synthetic.token_batch(0, 2, 8, cfg.vocab),
+                 lambda: serve.run(serve.make_args(smoke=True))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
