@@ -149,6 +149,30 @@ caught and passed over):
    rate, peak GiB, and one more decode step and one more prefill under
    ``device_profile`` (busy share, kernels, the top kernels).
 
+14. LM training through ``launch/train`` (``train_lm_phase``), no kernel
+   launched: (a) each LM arch's smoke config in float32 (TF32 off,
+   deterministic algorithms), one tree drawn on the CPU and copied to the
+   card, two ``make_train_step`` steps with nm 2 on the same batches on
+   both: losses, gnorms within rtol 1e-4, params and AdamW moments within
+   rtol 1e-4 / atol 1e-5 (lr 1e-4); on the card nm 2 == nm 1 for the
+   dense archs and the gradients with remat on == off; (b)
+   ``smollm-360m``'s ``config()`` whole (32 layers, bf16, 361,821,120
+   params, nm 4, remat) through ``train.run_with_state`` at batch 4 x
+   seq 4096 (``LM_SHAPES["train_4k"]``'s sequence, its global batch 256
+   cut to 4), one untimed warm-up step and 3 timed ones, each step under
+   the trainer's ``set_sync_debug_mode("error")``; (c) one ``--compress
+   int8`` and one ``--compress topk`` step of it at 4 x 1024, then for
+   every leaf decompressed + new error == gradient + old error and the
+   leaf's wire bytes n + 4 / 8 k; (d) ``granite-moe-3b-a800m``'s
+   ``config()`` whole (3,298,793,472 params, nm 8) at 8 x 1024 as (b);
+   (e) the train CLI at smoke size for both, plain and int8, with
+   ``--ckpt-every 4 --fail-at-step 6`` and cut at step 6 then
+   ``--resume``d, under deterministic algorithms, each final loss within
+   rtol 1e-5 of the uninterrupted run's.  (b) and (d) print the median
+   step ms, tokens/s, peak GiB, a gradient of every leaf non-zero on one
+   microbatch, and one more step under ``device_profile`` (busy share,
+   kernels, the top kernels).
+
 Phase 3 also holds both merges with float16 and bfloat16 values against
 their plain versions under the four semirings (keys and nnz exact,
 integer-valued payloads exact, normal ones within rtol 1e-2 for bf16 and
@@ -171,8 +195,8 @@ the sorted messages, GAT-Cora's numbers, and under ``prev_shape`` the
 kernel on the JAX kernel's staged operands (sorted messages, padded),
 which the node-tiled kernel read.
 
-It prints phase 13's numbers as one JSON line (``{"serve": ...}``), the
-card line, one JSON line with every kernel's numbers (the
+It prints phase 13's and phase 14's numbers as one JSON line each
+(``{"serve": ...}``, ``{"train_lm": ...}``), the card line, one JSON line with every kernel's numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
 the kernel took powers of two only; both merge rows carry their float16
@@ -184,6 +208,7 @@ fleet's ranks.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -872,18 +897,31 @@ def device_profile(torch, fn, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.device_time_total for e in events)
+    by_name = device_events(torch, prof)
+    device_us = sum(us for _, us in by_name.values())
     return dict(wall_ms=wall * 1e3, device_ms=device_us / 1e3,
                 device_busy_share=device_us / 1e6 / wall,
-                kernels=sum(e.count for e in events),
-                top=[dict(name=e.key[:60], calls=e.count,
-                          device_ms=e.device_time_total / 1e3)
-                     for e in sorted(events,
-                                     key=lambda e: -e.device_time_total)
-                     [:top]])
+                kernels=sum(n for n, _ in by_name.values()),
+                top=[dict(name=name[:60], calls=n, device_ms=us / 1e3)
+                     for name, (n, us) in sorted(
+                         by_name.items(), key=lambda kv: -kv[1][1])[:top]])
+
+
+def device_events(torch, prof) -> dict:
+    """{name: (count, device µs)} of the device's events (kernels, copies,
+    fills) in a finished profile, read from the trace itself: the
+    profiler's ``key_averages`` first builds a Python object per event of
+    the host and the device, which for a training step's ~10**5 kernels
+    takes longer than the step."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        us = (e.end_ns() - e.start_ns()) / 1e3
+        if us > 0:
+            n, total = out.get(e.name(), (0, 0.0))
+            out[e.name()] = (n + 1, total + us)
+    return out
 
 
 def timed(torch, fn, reps: int, warm: int):
@@ -2495,6 +2533,321 @@ def syncs_refused(torch, serve, device) -> None:
     raise AssertionError("no_host_sync let a host sync through")
 
 
+# ------------------------------------------------------------- phase 14 --
+
+LM_TRAIN_LR = 1e-4     # (a): atol 1e-5 is a tenth of one AdamW step
+LM_TRAIN_ATOL = 1e-5
+NM_RTOL = 1e-5         # nm 2 == nm 1: the reference's total rtol
+SMOLLM = "smollm-360m"
+GRANITE = "granite-moe-3b-a800m"
+
+
+def lm_two_steps(cfg, tree, batches, device, **over):
+    """Two ``make_train_step`` steps of ``cfg`` (with ``over``) from the
+    numpy tree ``tree`` on ``device``: (params, opt state, metrics of each
+    step as floats)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    cfg = dataclasses.replace(cfg, **over)
+    params = tf.params_from_numpy(tree, device)
+    opt = adamw_init(params)
+    step = tf.make_train_step(cfg, AdamWConfig(lr=LM_TRAIN_LR))
+    ms = []
+    for b in batches:
+        params, opt, m = step(params, opt,
+                              {k: v.to(device) for k, v in b.items()})
+        ms.append({k: float(v) for k, v in m.items()})
+    return params, opt, ms
+
+
+def _trees_close(torch, got, want, rtol, atol, what) -> float:
+    """Every leaf of ``got`` (trees of params, or of moments) within
+    rtol / atol of ``want``'s; returns the largest absolute difference."""
+    from repro_torch.models import common
+    worst = 0.0
+    for x, y in zip(common.tree_leaves(got), common.tree_leaves(want)):
+        x, y = x.detach().cpu().float(), y.detach().cpu().float()
+        if not torch.allclose(x, y, rtol=rtol, atol=atol):
+            raise AssertionError(f"{what}: differ by "
+                                 f"{float((x - y).abs().max())}")
+        worst = max(worst, float((x - y).abs().max()))
+    return worst
+
+
+def _metrics_close(got, want, keys, rtol, what) -> None:
+    for g, w in zip(got, want):
+        for k in keys:
+            if not abs(g[k] - w[k]) <= rtol * abs(w[k]):
+                raise AssertionError(f"{what} {k}: {g[k]} vs {w[k]}")
+
+
+def lm_train_cross_device(torch, card: str) -> dict:
+    """(a): each LM arch's smoke config in float32 under deterministic
+    algorithms, one tree drawn on the CPU from a seed: two
+    ``make_train_step`` steps with nm 2 on the same numpy batches on the
+    CPU and on ``card``, losses and gnorms within rtol 1e-4, params and
+    AdamW moments within rtol 1e-4 / atol 1e-5.  On ``card`` also: nm 2
+    == nm 1 for the dense archs (total rtol 1e-5, params rtol 1e-4 / atol
+    1e-5; an MoE's aux loss and capacity depend on the microbatch, as in
+    the reference) and the gradients with remat on == off (max relative
+    error <= 1e-5)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    res = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch in LM_ARCHS:
+            cfg = registry.get_smoke_config(arch)
+            tree = tf.params_to_numpy(tf.init(0, cfg, device="cpu"))
+            batches = [token_batch(s, 4, 16, cfg.vocab, device="cpu")
+                       for s in (1, 2)]
+            want = lm_two_steps(cfg, tree, batches, "cpu",
+                                num_microbatches=2)
+            got = lm_two_steps(cfg, tree, batches, card,
+                               num_microbatches=2)
+            _metrics_close(got[2], want[2], ("loss", "gnorm", "total"),
+                           XDEV_RTOL, f"{arch} card vs CPU")
+            rec = dict(
+                losses=[m["loss"] for m in got[2]],
+                params_max_abs_err=_trees_close(
+                    torch, got[0], want[0], XDEV_RTOL, LM_TRAIN_ATOL,
+                    f"{arch} params card vs CPU"),
+                moments_max_abs_err=_trees_close(
+                    torch, [got[1]["m"], got[1]["v"]],
+                    [want[1]["m"], want[1]["v"]], XDEV_RTOL, LM_TRAIN_ATOL,
+                    f"{arch} moments card vs CPU"))
+            if not cfg.moe:
+                one = lm_two_steps(cfg, tree, batches, card,
+                                   num_microbatches=1)
+                _metrics_close(got[2], one[2], ("total",), NM_RTOL,
+                               f"{arch} nm 2 vs 1")
+                rec["nm2_vs_nm1_params_max_abs_err"] = _trees_close(
+                    torch, got[0], one[0], XDEV_RTOL, LM_TRAIN_ATOL,
+                    f"{arch} nm 2 vs 1 params")
+            grads = {}
+            batch = {k: v.to(card) for k, v in batches[0].items()}
+            for remat in (True, False):
+                c = dataclasses.replace(cfg, remat=remat)
+                params = tf.params_from_numpy(tree, card)
+                _, (grads[remat],) = common.value_and_grad(
+                    lambda p: tf.loss_fn(p, batch, c), params)
+            rec["remat_max_rel_err"] = max(
+                max_rel_err(a, b) for a, b in zip(
+                    common.tree_leaves(grads[True]),
+                    common.tree_leaves(grads[False])))
+            if not rec["remat_max_rel_err"] <= TRAIN_RTOL:
+                raise AssertionError(f"{arch}: remat on vs off "
+                                     f"{rec['remat_max_rel_err']}")
+            res[arch] = rec
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return res
+
+
+def lm_train_record(torch, arch, device, *, smoke: bool, batch: int,
+                    seq: int, steps: int = 4) -> dict:
+    """(b) / (d): ``arch`` trained through ``launch/train.run_with_state``
+    for ``steps`` steps (the first an untimed warm-up): the median step
+    ms and tokens/s of the others, peak GiB, finite losses and gnorms;
+    then a gradient of every leaf non-zero and finite on one microbatch
+    (``grad_coverage``), and on the card one more step under
+    ``device_profile``, under the trainer's sync guard."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    _peak_reset(torch, device)
+    args = train.make_args(arch=arch, smoke=smoke, steps=steps, batch=batch,
+                           seq=seq, device=device, log_every=0)
+    out, state = train.run_with_state(args)
+    if not all(math.isfinite(x) for x in out["losses"] + out["gnorms"]):
+        raise AssertionError(f"{arch}: {out['losses']} {out['gnorms']}")
+    cfg = (registry.get_smoke_config if smoke else registry.get_config)(arch)
+    if smoke:
+        cfg = dataclasses.replace(cfg, num_microbatches=1)
+    step_s = _median(out["step_s"][1:])
+    rec = dict(params=cfg.n_params, layers=cfg.n_layers, batch=batch,
+               seq=seq, num_microbatches=cfg.num_microbatches,
+               losses=out["losses"], gnorms=out["gnorms"],
+               step_ms=step_s * 1e3, tokens_per_s=batch * seq / step_s,
+               step_ms_all=[s * 1e3 for s in out["step_s"]],
+               peak_gib=_peak_gib(torch, device))
+    data = token_batch(train.step_seed(args.seed, steps), batch, seq,
+                       cfg.vocab, device=device)
+    mb = {k: v[:batch // cfg.num_microbatches] for k, v in data.items()}
+    rec["grads"] = grad_coverage(
+        torch, lambda p: tf.loss_fn(p, mb, cfg), state["params"])
+    if torch.device(device).type == "cuda":
+        step = tf.make_train_step(cfg, AdamWConfig(lr=args.lr))
+
+        def one_step():
+            with serve.no_host_sync(torch.device(device)):
+                step(state["params"], state["opt"], data)
+        rec["profile"] = device_profile(torch, one_step, top=8)
+        # the profiler's own host work stretches the profiled wall: the
+        # device time over the unprofiled step is the card's busy share
+        rec["device_ms_over_step_ms"] = rec["profile"]["device_ms"] \
+            / rec["step_ms"]
+    return rec
+
+
+def lm_compress_checks(torch, device, *, smoke: bool, batch: int,
+                       seq: int) -> dict:
+    """(c): one ``--compress int8`` and one ``--compress topk`` step of
+    smollm through ``launch/train.run_with_state``; then at its params,
+    on step 1's batch, with its error tree: for every leaf decompressed +
+    new error == gradient + old error within 1e-5 of max |gradient|, and
+    the leaf's wire bytes n + 4 (int8) or 8 k (top-k)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import train
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import compression as comp
+    cfg = (registry.get_smoke_config if smoke else registry.get_config)(
+        SMOLLM)
+    res = {}
+    for kind in ("int8", "topk"):
+        args = train.make_args(arch=SMOLLM, smoke=smoke, steps=1,
+                               batch=batch, seq=seq, compress=kind,
+                               device=device, log_every=0)
+        out, state = train.run_with_state(args)
+        if not all(math.isfinite(x) for x in out["losses"] + out["gnorms"]):
+            raise AssertionError(f"compress {kind}: {out}")
+        data = token_batch(train.step_seed(args.seed, 1), batch, seq,
+                           cfg.vocab, device=device)
+        _, (g,) = common.value_and_grad(
+            lambda p: tf.loss_fn(p, data, cfg), state["params"])
+        ccfg = comp.CompressionConfig(kind)
+        payloads, new_err = comp.compress_tree(g, state["err"], ccfg)
+        deq = comp.decompress_tree(payloads, ccfg)
+        worst, wire, dense = 0.0, 0, 0
+        for gl, el, dl, nl, pl in zip(
+                *(common.tree_leaves(t) for t in (g, state["err"], deq,
+                                                   new_err)),
+                _payload_leaves(payloads)):
+            top = float(gl.float().abs().max())
+            diff = float((dl + nl - (gl.float() + el)).abs().max())
+            if not diff <= 1e-5 * top:
+                raise AssertionError(f"compress {kind}: a leaf of shape "
+                                     f"{tuple(gl.shape)} breaks the "
+                                     f"error-feedback invariant by {diff}")
+            worst = max(worst, diff / max(top, 1e-30))
+            n = gl.numel()
+            want = n + 4 if kind == "int8" else 8 * max(1, int(n * 0.01))
+            got = comp.wire_bytes(pl, ccfg)
+            if got != want:
+                raise AssertionError(f"compress {kind}: wire bytes {got} "
+                                     f"!= {want} for {n} elements")
+            wire += got
+            dense += 4 * n
+        res[kind] = dict(loss=out["losses"][0], step_ms=out["step_s"][0]
+                         * 1e3, invariant_max_rel_err=worst,
+                         wire_bytes=wire, dense_f32_bytes=dense,
+                         ratio=dense / wire)
+        del state, g, payloads, new_err, deq
+    return res
+
+
+def _payload_leaves(tree) -> list:
+    """The per-leaf payload dicts of a compressed tree, in leaf order."""
+    from repro_torch.optim.compression import _is_payload
+    if _is_payload(tree):
+        return [tree]
+    kids = sorted(tree.items()) if isinstance(tree, dict) else \
+        enumerate(tree)
+    return [p for _, v in kids for p in _payload_leaves(v)]
+
+
+def lm_resume_checks(torch, device, tmp) -> dict:
+    """(e): the train CLI at smoke size for smollm and granite, plain and
+    ``--compress int8``: ``--ckpt-every 4 --fail-at-step 6``, and a run
+    cut at step 6 then ``--resume``d, both end on the uninterrupted run's
+    loss within TRAIN_RTOL."""
+    from repro_torch.launch import train
+    out = {}
+    for arch in (SMOLLM, GRANITE):
+        for compress in ("", "int8"):
+            name = f"{arch} {compress or 'plain'}"
+            kw = dict(arch=arch, smoke=True, steps=10, batch=2, seq=32,
+                      compress=compress, device=device, log_every=0)
+            base = train.run(train.make_args(**kw))
+            failed = train.run(train.make_args(
+                ckpt_dir=os.path.join(tmp, name, "a"), ckpt_every=4,
+                fail_at_step=6, **kw))
+            cut = dict(kw, ckpt_dir=os.path.join(tmp, name, "b"),
+                       ckpt_every=4)
+            train.run(train.make_args(**dict(cut, steps=6)))
+            resumed = train.run(train.make_args(**dict(cut, resume=True)))
+            want = base["final_loss"]
+            rel = max(abs(r["final_loss"] - want) / abs(want)
+                      for r in (failed, resumed))
+            if failed["failures"] != 1 or len(resumed["losses"]) != 4 \
+                    or not rel <= TRAIN_RTOL:
+                raise AssertionError(f"{name}: resumed {failed['final_loss']}"
+                                     f" / {resumed['final_loss']} vs {want}")
+            out[name] = dict(final_loss=want, resumed_rel_err=rel)
+    return out
+
+
+def train_lm_phase(torch, device, card: str, tmp: str, *,
+                   smoke: bool = False) -> dict:
+    """Phase 14: LM training.  (a) card == CPU at smoke size, five archs;
+    (b) smollm-360m's ``config()`` whole at 4 x 4096; (c) its compression
+    at 4 x 1024; (d) granite-moe-3b-a800m's ``config()`` whole at 8 x
+    1024; (e) resume == uninterrupted at smoke size.  ``smoke`` runs
+    (b)-(d) on the smoke configs at small sizes (the CPU rehearsal)."""
+    from repro_torch.kernels import registry as kreg
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    if torch.device(device).type == "cuda":
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on")
+        syncs_refused(torch, serve, device)
+    kreg.reset_launches()
+    res = dict(cross_device=lm_train_cross_device(torch, device))
+    print(f"(a) card == CPU, smoke configs, float32, two steps at nm 2: "
+          f"{json.dumps(res['cross_device'])}", flush=True)
+    small = dict(batch=4, seq=32) if smoke else {}
+    res["smollm"] = lm_train_record(torch, SMOLLM, device, smoke=smoke,
+                                    **dict(dict(batch=4, seq=4096), **small))
+    print("(b) " + _train_line(SMOLLM, res["smollm"], card), flush=True)
+    res["compress"] = lm_compress_checks(
+        torch, device, smoke=smoke, **dict(dict(batch=4, seq=1024), **small))
+    print(f"(c) {SMOLLM} compression: {json.dumps(res['compress'])}; "
+          f"{card}", flush=True)
+    res["granite"] = lm_train_record(torch, GRANITE, device, smoke=smoke,
+                                     **dict(dict(batch=8, seq=1024), **small))
+    print("(d) " + _train_line(GRANITE, res["granite"], card), flush=True)
+    res["resume"] = lm_resume_checks(torch, device, tmp)
+    print(f"(e) resume == uninterrupted: {json.dumps(res['resume'])}",
+          flush=True)
+    res["launches"] = kreg.launches()
+    if any(res["launches"].values()):
+        raise AssertionError(f"LM training launched a kernel: "
+                             f"{res['launches']}")
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _train_line(arch: str, r: dict, card: str) -> str:
+    prof = r.get("profile")
+    busy = (f"; one step under the profiler: busy "
+            f"{prof['device_busy_share']:.3f}, {prof['kernels']} kernels, "
+            f"device {prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} "
+            f"({r['device_ms_over_step_ms']:.3f} of an unprofiled step)"
+            if prof else "")
+    return (f"{arch} ({r['params']} params, {r['layers']} layers) at "
+            f"{r['batch']} x {r['seq']}, nm {r['num_microbatches']}: "
+            f"{r['step_ms']:.3f} ms a step (median after the first), "
+            f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_gib']} GiB, "
+            f"losses {r['losses']}, {r['grads']['leaves']} leaves with a "
+            f"gradient{busy}; {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2780,6 +3133,17 @@ def main() -> int:
     served = serve_phase(torch, "cuda", card)
     served["wall_s"] = time.perf_counter() - t0
     print(f"phase 13 wall {served['wall_s']:.1f} s; {card}", flush=True)
+
+    phase("14 LM training through launch/train: card == CPU for five archs, "
+          "smollm-360m whole at 4 x 4096, compression, granite-moe-3b-a800m "
+          "whole at 8 x 1024, resume")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB held by earlier "
+          f"phases", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = train_lm_phase(torch, "cuda", card, tmp)
+    print(f"phase 14 wall {trained['wall_s']:.1f} s; {card}", flush=True)
     fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
                       for r in fleet["runs"]}
     fleet_launches.update({f"{s} gloo P=2": fleet[s]["merge_multi"]
@@ -2815,6 +3179,7 @@ def main() -> int:
     kernels[0]["phase12_launches"] = fleet_launches
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": served, "card": card}))
+    print(json.dumps({"train_lm": trained, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,2 @@
-"""Data substrate: R-MAT power-law update streams, synthetic recsys batches
-and the GNN graph builders."""
+"""Data substrate: R-MAT power-law update streams, synthetic recsys and
+token batches, the GNN graph builders and the prefetching batch stream."""

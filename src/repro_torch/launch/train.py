@@ -1,8 +1,8 @@
 """Fault-tolerant training driver — the port of ``repro/launch/train.py``.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --smoke \\
-        --steps 50 --batch 8 --ckpt-dir /tmp/ckpt --ckpt-every 10 \\
-        --hier-embed
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \\
+        --ckpt-every 10 [--compress int8|topk]
 
 Runs on the CUDA device unless ``--device cpu`` (and raises without one).
 The supervisor loop is the reference's:
@@ -16,15 +16,20 @@ The supervisor loop is the reference's:
     loop catches, restores, and continues;
   * straggler mitigation: per-step deadline EMA (``runtime/straggler.py``);
     persistent stragglers escalate to the failure path;
+  * cross-pod gradient compression of the ``lm`` family (``--compress
+    int8|topk``, ``optim/compression.py``) with error feedback — the
+    compress->wire->decompress roundtrip runs in-step; its error tree is
+    part of the checkpointed state;
   * hierarchical sparse embedding-grad accumulation for recsys
     (``--hier-embed``): the paper's technique as an optimizer feature.
 
-Families: ``recsys`` (DCN-v2) and ``gnn``; training of the ``lm`` family
-is not ported yet (its serving is: ``launch/serve.py``) and its archs
-raise ``ValueError`` (``--compress`` only touches the
-``lm`` setup, as in the reference, so it is accepted and has no effect).
-The step function is called directly (the reference wraps it in its
-``stages`` compile front door, which the port does not have yet).
+Families: ``lm`` (the five LM archs; ``--smoke`` trains with one
+microbatch, as the reference does; on the card each step runs under
+``set_sync_debug_mode("error")``, so it makes the host wait for nothing),
+``recsys`` (DCN-v2) and ``gnn``.  ``--compress`` only touches the ``lm``
+setup, as in the reference.  The step function is called directly (the
+reference wraps it in its ``stages`` compile front door, which the port
+does not have yet).
 
 Every family's adapter exposes the same contract:
     state0, step(state, batch) -> (state, metrics), data(step) -> batch
@@ -32,6 +37,7 @@ Every family's adapter exposes the same contract:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -39,7 +45,7 @@ import torch
 from repro_torch import generator, resolve_device
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.registry import family, get_config, get_smoke_config
-from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime.straggler import StragglerEvicted, StragglerMonitor
 
 
@@ -51,6 +57,51 @@ def step_seed(seed: int, step: int) -> int:
     """Step ``step``'s data seed, from ``(seed + 1, step)``: the port's
     counterpart of ``fold_in(PRNGKey(seed + 1), step)``."""
     return ((int(seed) + 1) << 32) | int(step)
+
+
+def _lm_setup(cfg, args, device):
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.serve import no_host_sync
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.compression import (CompressionConfig, ef_init,
+                                               roundtrip)
+
+    params = tf.init(args.seed, cfg, device=device)
+    opt_cfg = AdamWConfig(lr=args.lr)
+
+    if args.compress:
+        comp = CompressionConfig(args.compress)
+
+        def step_body(state, batch):
+            (_, m), (g,) = common.value_and_grad(
+                lambda p: tf.loss_fn(p, batch, cfg), state["params"])
+            # error-feedback compression: what crosses the pod link
+            g, err = roundtrip(g, state["err"], comp)
+            p, o, gnorm = adamw_update(g, state["opt"], state["params"],
+                                       opt_cfg)
+            return dict(params=p, opt=o, err=err), dict(m, gnorm=gnorm)
+
+        state0 = dict(params=params, opt=adamw_init(params),
+                      err=ef_init(params))
+    else:
+        raw = tf.make_train_step(cfg, opt_cfg)
+
+        def step_body(state, batch):
+            p, o, m = raw(state["params"], state["opt"], batch)
+            return dict(params=p, opt=o), m
+
+        state0 = dict(params=params, opt=adamw_init(params))
+
+    def step_fn(state, batch):
+        with no_host_sync(device):
+            return step_body(state, batch)
+
+    def data(step):
+        return token_batch(step_seed(args.seed, step), args.batch, args.seq,
+                           cfg.vocab, device=device)
+
+    return state0, step_fn, data
 
 
 def _gnn_setup(cfg, args, device):
@@ -122,10 +173,9 @@ def run_with_state(args):
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     fam = family(args.arch)
-    if fam == "lm":
-        raise ValueError(f"arch {args.arch!r}: training of the lm family is "
-                         f"not ported yet (serving is: launch/serve.py)")
-    setup = dict(gnn=_gnn_setup, recsys=_recsys_setup)[fam]
+    if fam == "lm" and args.smoke:
+        cfg = dataclasses.replace(cfg, num_microbatches=1)
+    setup = dict(lm=_lm_setup, gnn=_gnn_setup, recsys=_recsys_setup)[fam]
     state, step_fn, data = setup(cfg, args, device)
 
     start = 0
@@ -216,7 +266,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--straggler-threshold", type=float, default=10.0)
     ap.add_argument("--compress", default="", choices=["", "int8", "topk"],
                     help="cross-pod gradient compression of the lm family "
-                    "(not ported yet: no effect on recsys and gnn)")
+                    "(no effect on recsys and gnn)")
     ap.add_argument("--hier-embed", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",

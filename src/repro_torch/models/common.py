@@ -8,6 +8,10 @@ JAX package's parameter pytree (nested dicts and lists of arrays), whose
 parameter).  ``tree_from_numpy`` / ``tree_to_numpy`` carry parameters
 between the two packages as numpy arrays.
 
+``cross_entropy`` is the LM loss (float32 log-sum-exp minus the gold
+logit, plus an optional z-loss); ``count_params`` counts a tree's
+elements.
+
 Training walks a tree — a ``ParamTree``, or nested dicts and lists of
 tensors such as the optimizer's moments — in the JAX package's leaf order
 (dict keys sorted, lists by index: ``tree_leaves``), and takes gradients
@@ -74,6 +78,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean over every position of ``logsumexp(logits) - logits[label]``
+    (plus ``z_loss * logsumexp**2``), computed in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return torch.mean(loss)
+
+
+def count_params(params) -> int:
+    """The number of elements over every leaf of a tree."""
+    return sum(int(p.numel()) for p in tree_leaves(params))
 
 
 # A model's parameters are first described as a spec: the pytree's nesting

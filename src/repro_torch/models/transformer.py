@@ -1,6 +1,6 @@
-"""Decoder-only transformer LM, serving half: GQA/MLA attention, dense/MoE
-FFN — the port of ``repro/models/transformer.py``'s init, forward,
-init_cache, decode_step and prefill.
+"""Decoder-only transformer LM: GQA/MLA attention, dense/MoE FFN — the
+port of ``repro/models/transformer.py``: init, forward, loss_fn,
+make_train_step, init_cache, decode_step and prefill.
 
 One code path covers all five LM architectures; the config selects the
 attention flavour (GQA incl. MHA, or DeepSeek-V2 MLA) and the FFN flavour
@@ -10,8 +10,16 @@ The parameters are a ``ParamTree`` whose names are the JAX pytree's paths
 (``embed``, ``final_norm``, ``layers.attn.wq``, ``layers.ffn.w_gate``,
 ``lm_head`` when untied): the per-layer leaves are stacked ``[L, ...]``,
 as the reference's ``vmap``-ed init makes them, and the layers run as a
-Python loop over views of them.  Nothing here is differentiated (the
-reference's remat only serves training).
+Python loop over views of them, one ``torch.unbind`` a leaf (whose
+backward is one ``stack``; indexing each layer would zero and add a
+whole ``[L, ...]`` gradient per layer).
+
+Training: ``forward`` checkpoints each layer (``torch.utils.checkpoint``,
+non-reentrant) under ``cfg.remat`` when autograd records, where the
+reference takes ``jax.checkpoint``; ``make_train_step`` splits the batch
+into ``cfg.num_microbatches`` contiguous microbatches and accumulates
+their gradients in place in ``cfg.grad_accum_dtype``, then runs AdamW in
+place.  The step makes the host wait for nothing.
 
 The KV cache is a dict of stacked ``[L, B, ..., max_len, D]`` tensors
 (``k``/``v``, or ``c_kv``/``k_rope`` for MLA); ``decode_step`` writes the
@@ -24,6 +32,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import generator, resolve_device
 from repro_torch.configs.base import LMConfig
@@ -31,8 +40,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import MLAConfig
-from repro_torch.models.common import rms_norm, swiglu
+from repro_torch.models.common import cross_entropy, rms_norm, swiglu
 from repro_torch.models.moe import MoEConfig
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
@@ -107,15 +117,16 @@ def params_to_numpy(params: common.ParamTree) -> dict:
 
 
 def _layers(params) -> list:
-    """Per-layer views of the stacked ``layers`` leaves, as nested dicts."""
-    stacked = common.to_tree(params.layers)
-    n = stacked["ln1"].shape[0]
-
-    def pick(node, i):
-        if isinstance(node, dict):
-            return {k: pick(v, i) for k, v in node.items()}
-        return node[i]
-    return [pick(stacked, i) for i in range(n)]
+    """Per-layer views of the stacked ``layers`` leaves, as nested dicts:
+    one ``torch.unbind`` per leaf."""
+    out = [{} for _ in range(params.layers.ln1.shape[0])]
+    for name, leaf in params.layers.named_parameters():
+        *path, key = name.split(".")
+        for lp, view in zip(out, torch.unbind(leaf)):
+            for k in path:
+                lp = lp.setdefault(k, {})
+            lp[key] = view
+    return out
 
 
 # ---------------------------------------------------------------- forward ---
@@ -162,15 +173,93 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def forward(params, tokens: torch.Tensor, cfg: LMConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V], aux_loss [] f32)."""
+    """tokens [B, S] -> (logits [B, S, V], aux_loss [] f32).  Under
+    ``cfg.remat``, while autograd records, each layer keeps only its input
+    and is recomputed in the backward."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed(params, tokens)
+
+    def body(x, lp):
+        x, a, _ = _layer_forward(lp, x, cfg, positions)
+        return x, a
+
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
     aux = torch.zeros((), device=x.device)
     for lp in _layers(params):
-        x, a, _ = _layer_forward(lp, x, cfg, positions)
+        if remat:
+            # no layer draws a random number: nothing to replay
+            x, a = torch.utils.checkpoint.checkpoint(
+                body, x, lp, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = body(x, lp)
         aux = aux + a
     return _logits(params, x, cfg), aux
+
+
+def loss_fn(params, batch: dict, cfg: LMConfig):
+    """(cross entropy + aux loss, dict(loss=cross entropy, aux=aux))."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux, dict(loss=ce, aux=aux)
+
+
+# --------------------------------------------------------------- training ---
+
+def make_train_step(cfg: LMConfig, opt_cfg: AdamWConfig, lr_schedule=None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics); params
+    and moments are updated in place.
+
+    ``cfg.num_microbatches`` = nm > 1 splits the batch on dim 0 into nm
+    contiguous microbatches and accumulates their gradients in
+    ``cfg.grad_accum_dtype``, then divides by nm.  The metrics are the
+    reference's: with nm == 1 ``loss`` is the cross entropy, ``aux`` the
+    aux loss and ``total`` their sum; with nm > 1 ``loss`` and ``total``
+    are the mean over microbatches of cross entropy + aux, and ``aux`` is
+    0.  ``lr_schedule``, when given, maps the step count to the lr.
+    """
+    nm = cfg.num_microbatches
+    acc_dt = getattr(torch, cfg.grad_accum_dtype)
+
+    def grad_fn(params, batch):
+        (loss, metrics), (grads,) = common.value_and_grad(
+            lambda p: loss_fn(p, batch, cfg), params)
+        return loss, metrics, grads
+
+    def step(params, opt_state, batch):
+        if nm == 1:
+            loss, metrics, grads = grad_fn(params, batch)
+        else:
+            b = batch["tokens"].shape[0]
+            if b % nm:
+                raise ValueError(f"batch {b} is not a multiple of "
+                                 f"num_microbatches {nm}")
+            leaves = common.tree_leaves(params)
+            acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                   for p in leaves]
+            loss = torch.zeros((), device=leaves[0].device)
+            for i in range(nm):
+                mb = {k: v.reshape(nm, b // nm, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                l, _, g = grad_fn(params, mb)
+                for a, x in zip(acc, common.tree_leaves(g)):
+                    # into a float32 accumulator a 16-bit gradient widens
+                    # exactly, so it is added as it is (no widened copy);
+                    # into a 16-bit one it is rounded first, as the
+                    # reference's ``a + x.astype(acc_dt)``
+                    a.add_(x if acc_dt == torch.float32 else x.to(acc_dt))
+                del g
+                loss = loss + l
+            grads = common.tree_unflatten(params, [a.div_(nm) for a in acc])
+            loss = loss / nm
+            metrics = dict(loss=loss, aux=torch.zeros_like(loss))
+        lr = lr_schedule(opt_state["count"]) if lr_schedule else None
+        params, opt_state, gnorm = adamw_update(grads, opt_state, params,
+                                                opt_cfg, lr)
+        return params, opt_state, dict(metrics, total=loss, gnorm=gnorm)
+
+    return step
 
 
 # ---------------------------------------------------------------- serving ---

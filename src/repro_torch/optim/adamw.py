@@ -57,8 +57,11 @@ def _global_norm(grads) -> torch.Tensor:
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
-    # a float32 division (``float / tensor`` would multiply by a reciprocal)
-    num = torch.tensor(max_norm, dtype=torch.float32, device=gnorm.device)
+    # a float32 division (``float / tensor`` would multiply by a
+    # reciprocal); ``full`` fills on the device, where ``torch.tensor``
+    # would copy from the host and wait for it (a step runs under
+    # ``set_sync_debug_mode("error")`` in the LM trainer)
+    num = torch.full((), max_norm, dtype=torch.float32, device=gnorm.device)
     return torch.clamp(num / torch.clamp(gnorm, min=1e-12), max=1.0)
 
 
@@ -70,7 +73,8 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _pow32(b: float, t: torch.Tensor) -> torch.Tensor:
-    return torch.pow(torch.tensor(b, dtype=torch.float32, device=t.device), t)
+    return torch.pow(torch.full((), b, dtype=torch.float32, device=t.device),
+                     t)
 
 
 @torch.no_grad()

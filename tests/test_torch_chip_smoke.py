@@ -218,3 +218,37 @@ def test_serve_phase_on_cpu():
     assert res["deepseek_params"] == registry.get_smoke_config(
         "deepseek-v2-236b").n_params
     assert not any(res["launches"].values())
+
+
+def test_train_lm_phase_on_cpu(tmp_path):
+    """Phase 14 at smoke size: (a) the card-vs-CPU comparison's own code
+    with the CPU standing in, five archs (nm 2 == nm 1 for the dense ones,
+    remat on == off); (b) smollm and (d) granite-moe trained through
+    ``launch/train.run_with_state`` (finite losses, a gradient for every
+    leaf); (c) compression's error-feedback invariant and wire bytes;
+    (e) resume == uninterrupted, plain and int8; no kernel launched."""
+    res = chip_smoke.train_lm_phase(torch, "cpu", "the CPU, no card line",
+                                    str(tmp_path), smoke=True)
+    xdev = res["cross_device"]
+    assert sorted(xdev) == list(chip_smoke.LM_ARCHS)
+    for arch, r in xdev.items():
+        assert r["params_max_abs_err"] == r["moments_max_abs_err"] == 0.0
+        assert r["remat_max_rel_err"] <= 1e-5
+        moe = registry.get_smoke_config(arch).moe
+        assert ("nm2_vs_nm1_params_max_abs_err" in r) != moe
+    for key, arch in (("smollm", "smollm-360m"),
+                      ("granite", "granite-moe-3b-a800m")):
+        r = res[key]
+        assert r["params"] == registry.get_smoke_config(arch).n_params
+        assert len(r["losses"]) == 4 and r["tokens_per_s"] > 0
+        assert r["grads"]["leaves"] == (12 if key == "granite" else 11)
+        assert r["peak_gib"] is None and "profile" not in r  # the card only
+    for kind, r in res["compress"].items():
+        assert r["invariant_max_rel_err"] <= 1e-5
+        assert r["wire_bytes"] < r["dense_f32_bytes"]
+    assert res["compress"]["int8"]["ratio"] > 3.9
+    assert sorted(res["resume"]) == [
+        "granite-moe-3b-a800m int8", "granite-moe-3b-a800m plain",
+        "smollm-360m int8", "smollm-360m plain"]
+    assert all(r["resumed_rel_err"] <= 1e-5 for r in res["resume"].values())
+    assert not any(res["launches"].values())

@@ -278,3 +278,36 @@ def test_lm_modules_import_no_jax_and_default_to_cuda(monkeypatch):
                  lambda: serve.run(serve.make_args(smoke=True))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_lm_training_modules_import_no_jax_and_default_to_cuda(monkeypatch):
+    """The LM training slice (``cross_entropy``, ``loss_fn`` and
+    ``make_train_step``, gradient compression, the prefetching stream, the
+    trainer's lm family) imports neither JAX nor anything of the JAX
+    package (each file, and in a fresh process); the trainer defaults to
+    cuda and raises without it, for every LM arch and with
+    ``--compress``."""
+    for name in ("optim/compression.py", "data/pipeline.py",
+                 "models/transformer.py", "models/common.py",
+                 "launch/train.py", "optim/adamw.py"):
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "import repro_torch.optim.compression, repro_torch.data.pipeline\n"
+            "import repro_torch.launch.train, repro_torch.models.transformer\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    for arch in registry.list_archs("lm"):
+        for compress in ("", "int8", "topk"):
+            args = train.make_args(arch=arch, compress=compress)
+            assert args.device == "cuda"
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                train.run(args)
