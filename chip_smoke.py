@@ -145,9 +145,11 @@ caught and passed over):
    cut 60 -> 4 (33.87 GB in bf16) through ``serve.run_config`` at the
    defaults after an untimed warm-up, and its absorbed MLA decode == the
    naive forward at 1 layer in float32.  Per run: prefill and decode
-   tok/s, decode ms a step, the weights' bytes over the card's memory
-   rate, peak GiB, and one more decode step and one more prefill under
-   ``device_profile`` (busy share, kernels, the top kernels).
+   tok/s, decode ms a step (the decode is the captured ``serve.decode``:
+   its warm-up and capture steps are left out of the timing), the
+   weights' bytes over the card's memory rate, peak GiB, and one more
+   eager decode step and one more prefill under ``device_profile`` (busy
+   share, kernels, the top kernels).
 
 14. LM training through ``launch/train`` (``train_lm_phase``), no kernel
    launched: (a) each LM arch's smoke config in float32 (TF32 off,
@@ -159,8 +161,9 @@ caught and passed over):
    ``smollm-360m``'s ``config()`` whole (32 layers, bf16, 361,821,120
    params, nm 4, remat) through ``train.run_with_state`` at batch 4 x
    seq 4096 (``LM_SHAPES["train_4k"]``'s sequence, its global batch 256
-   cut to 4), one untimed warm-up step and 3 timed ones, each step under
-   the trainer's ``set_sync_debug_mode("error")``; (c) one ``--compress
+   cut to 4), 4 steps of the captured ``train.lm_step`` (the eager
+   warm-up and the capture untimed, then 2 replays timed), each step
+   under the trainer's ``set_sync_debug_mode("error")``; (c) one ``--compress
    int8`` and one ``--compress topk`` step of it at 4 x 1024, then for
    every leaf decompressed + new error == gradient + old error and the
    leaf's wire bytes n + 4 / 8 k; (d) ``granite-moe-3b-a800m``'s
@@ -195,15 +198,39 @@ the sorted messages, GAT-Cora's numbers, and under ``prev_shape`` the
 kernel on the JAX kernel's staged operands (sorted messages, padded),
 which the node-tiled kernel read.
 
-It prints phase 13's and phase 14's numbers as one JSON line each
-(``{"serve": ...}``, ``{"train_lm": ...}``), the card line, one JSON line with every kernel's numbers (the
+15. the ``stages`` front door (``stages_phase``): (a) ``precompile_fleet``
+   at phase 4's geometry with phase 9's query knobs makes every entry of
+   ``fleet_jobs``, then a ``launch/ingest`` and a ``launch/query`` run
+   with ``--obs`` add no lowering and no compile, and ``obs.jsonl`` holds
+   one ``dispatch`` record per dispatch; (b) phase 9's canon batch (32
+   instances x 256 lookups, ``use_kernel``) eager (``wrapped.fn``) and
+   captured, 7 runs a side interleaved: answers equal exactly, 32
+   ``merge_multi`` launches a replay, the bytes copied into the graph's
+   inputs; (c) ``granite-moe-3b-a800m``'s ``config()`` whole decoding at
+   batch 8, prompt 64, gen 32, 5 runs a side interleaved: tokens equal,
+   logits bit-equal under deterministic algorithms; (d) its training step
+   at 8 x 1024, nm 8, 6 steps a side each from the seed's state, under
+   deterministic algorithms (losses and gnorms within rtol 1e-5) and
+   again without (timed; its losses' difference recorded); and the five
+   smoke configs' steps in float32 bit for bit; (e) a capture that reads the host refused (in a
+   process of its own), every replay under
+   ``set_sync_debug_mode("error")``.  Ms, tok/s, kernels a step, busy
+   share and peak GiB per arm; the timings leave out the warm-up and
+   capture dispatches.
+
+It prints phase 13's, 14's and 15's numbers as one JSON line each
+(``{"serve": ...}``, ``{"train_lm": ...}``, ``{"stages": ...}``), the
+card line, one JSON line with every kernel's numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
 the kernel took powers of two only; both merge rows carry their float16
 and bfloat16 numbers under those keys), and as its last line
 ``{"ok": true, "device": {...}}``; the ``merge_multi`` row also
 carries ``phase12_launches``, phase 12's launches summed over each
-fleet's ranks.
+fleet's ranks, ``phase9_query_launches`` (phase 9's query batches: the
+warm-up's eager batch, then replays; a captured graph's launches are
+counted at each replay), ``phase9_replay_launches`` and
+``phase15_launches_per_replay``.
 """
 from __future__ import annotations
 
@@ -1215,12 +1242,14 @@ def service_phase(torch, args, width: int = 64) -> dict:
     states_equal(base, states, "service with queries vs without")
 
     # the query batches' merge_multi launches: one per instance and canon
-    # batch (the warm-up batch and one per timed round)
+    # batch (the warm-up's batches — on the card the eager one and the
+    # capture's first replay — and one replay per timed round)
     c0 = states.capacities[0]
     canon = args.l0_mode == "canon" or (
         args.l0_mode == "auto"
         and args.queries > engine._L0_SCAN_FACTOR * math.log2(c0 + 1))
-    batches = 1 + (args.rounds - 1) * args.queries_per_round
+    batches = (2 if on_card else 1) + (args.rounds - 1) \
+        * args.queries_per_round
     by_queries = {key: stats["launches"][key]
                   - stats["ingest_only_launches"][key]
                   for key in stats["launches"]}
@@ -1321,16 +1350,20 @@ def service_phase(torch, args, width: int = 64) -> dict:
             not torch.equal(occ.sum(-1), slots):
         raise AssertionError("row_occupancy != the live slots per row")
 
+    from repro_torch.query import service
+    query_fn = service.make_point_query_fn(use_kernel=uk,
+                                           l0_mode=args.l0_mode)
+    comp = query_fn.last
+    replay_launches = comp.replays * comp.launches.get(
+        "hier_merge.merge_multi", 0) if comp is not None else 0
     profiles = {}
     if on_card:
-        # one query batch and one analytics batch under torch.profiler
-        from repro_torch.query import service
-        query_fn = service.make_point_query_fn(use_kernel=uk,
-                                               l0_mode=args.l0_mode)
+        # one eager query batch (the entry's function; phase 15 profiles
+        # the replay) and one analytics batch under torch.profiler
         top_fn = service.make_analytics_fn(n_keys, k)
         q_rows, q_cols = qr[0], qc[0]
-        for name, fn in (("query_batch", lambda: query_fn(states, q_rows,
-                                                           q_cols)),
+        for name, fn in (("query_batch", lambda: query_fn.fn(
+                              states, q_rows, q_cols)),
                          ("analytics_batch", lambda: top_fn(states))):
             profiles[name] = device_profile(torch, fn)
             print(f"profile {name}: " + json.dumps(profiles[name]),
@@ -1350,7 +1383,8 @@ def service_phase(torch, args, width: int = 64) -> dict:
         query_batches=batches, stalled_rounds=stats["stalled_rounds"],
         launches=stats["launches"],
         ingest_only_launches=stats["ingest_only_launches"],
-        query_launches=by_queries, narrow_width=width,
+        query_launches=by_queries, query_replay_launches=replay_launches,
+        narrow_width=width,
         narrow_max_truncated=worst_trunc, profiles=profiles,
         peak_gib=(torch.cuda.max_memory_allocated() / 2**30
                   if on_card else None))
@@ -2410,7 +2444,9 @@ def decode_vs_forward(torch, cfg, device) -> dict:
 
 def serve_record(torch, run, device) -> dict:
     """One serve run (``run()`` -> ``serve.run_config``'s result and
-    state): its rates, decode ms a step, peak GiB, the weights' bytes over
+    state): its rates, decode ms a step (of the steady steps: on the card
+    the decode's warm-up and capture steps are not timed), peak GiB, the
+    weights' bytes over
     the card's memory rate (the least a decode step can take: the
     dispatch runs every expert), and on the card one more decode step
     under ``device_profile``."""
@@ -2423,7 +2459,9 @@ def serve_record(torch, run, device) -> dict:
         raise AssertionError(f"serve: {out}")
     nbytes = sum(p.numel() * p.element_size()
                  for p in state["params"].parameters())
-    rec = dict(out, decode_ms_per_step=out["decode_s"] / gen * 1e3,
+    steps = state["decode_steps"]
+    rec = dict(out, decode_steps=steps,
+               decode_ms_per_step=out["decode_s"] / max(steps, 1) * 1e3,
                peak_gib=_peak_gib(torch, device), weights_gb=nbytes / 1e9,
                weights_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     if torch.device(device).type == "cuda":
@@ -2649,8 +2687,10 @@ def lm_train_cross_device(torch, card: str) -> dict:
 def lm_train_record(torch, arch, device, *, smoke: bool, batch: int,
                     seq: int, steps: int = 4) -> dict:
     """(b) / (d): ``arch`` trained through ``launch/train.run_with_state``
-    for ``steps`` steps (the first an untimed warm-up): the median step
-    ms and tokens/s of the others, peak GiB, finite losses and gnorms;
+    for ``steps`` steps (the first two untimed: on the card the eager
+    warm-up of ``train.lm_step`` and its capture): the median step ms and
+    tokens/s of the others, replays of the captured step, peak GiB,
+    finite losses and gnorms;
     then a gradient of every leaf non-zero and finite on one microbatch
     (``grad_coverage``), and on the card one more step under
     ``device_profile``, under the trainer's sync guard."""
@@ -2668,7 +2708,7 @@ def lm_train_record(torch, arch, device, *, smoke: bool, batch: int,
     cfg = (registry.get_smoke_config if smoke else registry.get_config)(arch)
     if smoke:
         cfg = dataclasses.replace(cfg, num_microbatches=1)
-    step_s = _median(out["step_s"][1:])
+    step_s = _median(out["step_s"][2:])
     rec = dict(params=cfg.n_params, layers=cfg.n_layers, batch=batch,
                seq=seq, num_microbatches=cfg.num_microbatches,
                losses=out["losses"], gnorms=out["gnorms"],
@@ -2842,10 +2882,488 @@ def _train_line(arch: str, r: dict, card: str) -> str:
             if prof else "")
     return (f"{arch} ({r['params']} params, {r['layers']} layers) at "
             f"{r['batch']} x {r['seq']}, nm {r['num_microbatches']}: "
-            f"{r['step_ms']:.3f} ms a step (median after the first), "
+            f"{r['step_ms']:.3f} ms a step (median after the warm-up and "
+            f"the capture), "
             f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_gib']} GiB, "
             f"losses {r['losses']}, {r['grads']['leaves']} leaves with a "
             f"gradient{busy}; {card}")
+
+
+# ------------------------------------------------------------- phase 15 --
+
+STAGES_RUNS = 5          # runs a side of each A/B, the arms interleaved
+TRAIN_AB_STEPS = 6       # (d): steps a side
+MM = "hier_merge.merge_multi"
+
+CAPTURE_REFUSED = """
+import sys
+import torch
+sys.path.insert(0, "src")
+from repro_torch import stages
+w = stages.wrap(lambda x: x * x.sum().item(), "smoke.host_read",
+                stages.signature_of(extra=(("case", "host_read"),)),
+                kind="graph")
+x = torch.ones(4, device="cuda")
+w(x)
+try:
+    w(x)
+except RuntimeError as e:
+    print("refused:", str(e).strip().splitlines()[0][:160])
+    print("captures", stages.stats()["captures"])
+    sys.exit(0)
+print("captured a host read")
+sys.exit(1)
+"""
+
+
+def front_door_check(torch, device, tmp, small=None):
+    """(a): ``precompile_fleet`` at phase 4's geometry with phase 9's query
+    knobs (``small``: the CPU rehearsal's) makes every entry of
+    ``fleet_jobs``; then a ``launch/ingest`` run (the stream in phase 9's
+    rounds) and a ``launch/query`` run, both with ``--obs``, add no
+    lowering and no compile, and ``obs.jsonl`` holds one ``dispatch``
+    record per dispatch.  Returns (numbers, the query run's live fleet)."""
+    from repro_torch import stages
+    from repro_torch.launch import ingest, query
+    from repro_torch.obs import trace as obs_trace
+    obs_dir = os.path.join(tmp, "obs")
+    geo = dict(small or {})
+    qx = {k: geo.pop(k) for k in ("queries", "top_k") if k in geo}
+    q_args = service_args(device=device, obs=True, obs_dir=obs_dir,
+                          **geo, **qx)
+    i_args = ingest_args(**dict(geo, device=device, rounds=q_args.rounds,
+                                obs=True, obs_dir=obs_dir))
+    sig = dataclasses.replace(ingest.signature(i_args),
+                              l0_mode=q_args.l0_mode)
+    job_kw = dict(instances=q_args.instances,
+                  blocks=q_args.blocks // q_args.rounds,
+                  queries=q_args.queries,
+                  analytics_num_rows=1 << q_args.scale,
+                  analytics_k=q_args.top_k, device=device)
+    stages.clear_memory_cache()
+    stages.reset_stats()
+    report = stages.precompile_fleet(sig, **job_kw)
+    names = [e for e, _, _ in stages.fleet_jobs(sig, **job_kw)]
+    if sorted(report) != sorted(names):
+        raise AssertionError(f"precompile_fleet {report} != {names}")
+    s0 = stages.stats()
+    try:
+        ingest.run(i_args)
+        stats, _, states = query.run_with_states(q_args)
+    finally:
+        obs_trace.disable()
+    s1 = stages.stats()
+    delta = {k: s1[k] - s0[k] for k in ("lowerings", "compiles",
+                                        "dispatches", "memory_hits",
+                                        "captures")}
+    if delta["lowerings"] or delta["compiles"]:
+        raise AssertionError(f"the runs after precompile_fleet compiled: "
+                             f"{delta}")
+    with open(os.path.join(obs_dir, "obs.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    disp = [r for r in recs if r["ev"] == "dispatch"]
+    kinds = {}
+    for r in disp:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    if len(disp) != delta["dispatches"]:
+        raise AssertionError(f"{len(disp)} dispatch records for "
+                             f"{delta['dispatches']} dispatches")
+    want_graph = torch.device(device).type == "cuda"
+    if bool(kinds.get("graph")) != want_graph:
+        raise AssertionError(f"dispatch kinds {kinds}")
+    return dict(precompile=report, after_precompile=delta,
+                dispatch_records=len(disp), kinds=kinds,
+                per_entry={e: v["dispatches"] for e, v in
+                           s1["per_entry"].items()},
+                queries_per_s=stats["queries_per_s"]), states
+
+
+def _arm_times(torch, device, arms, runs):
+    """``runs`` rounds of every arm in turn, each call timed alone (host
+    clock, a synchronize before and after); returns {arm: [ms]} and the
+    last output of each arm."""
+    times, outs = {a: [] for a in arms}, {}
+    for _ in range(runs):
+        for name, fn in arms.items():
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            _sync(torch, device)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return times, outs
+
+
+def canon_batch_ab(torch, states, device, *, queries=256, runs=7):
+    """(b): phase 9's canon query batch (every instance, ``queries``
+    lookups, ``use_kernel``) through ``service.point_query``, eager
+    (``wrapped.fn``) and captured, ``runs`` batches a side interleaved
+    after the eager warm-up and the capture: answers equal exactly, ms a
+    batch, ``merge_multi`` launches a replay (one an instance), bytes
+    copied into the graph's inputs for the same fleet (0) and for a fresh
+    copy of it, and on the card each arm's device busy share."""
+    from repro_torch.core import stream
+    from repro_torch.kernels import registry
+    from repro_torch.query import service
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    q = service.make_point_query_fn(use_kernel=True, l0_mode="canon")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    half = queries // 2
+    l1 = states.layers[1]
+    rand = lambda: torch.randint(0, 1 << 20, (queries - half,),  # noqa: E731
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+    qr = torch.cat([l1.hi[0, :half], rand()])
+    qc = torch.cat([l1.lo[0, :half], rand()])
+    want = q.fn(states, qr, qc).clone()
+    got = q.steady(states, qr, qc)
+    _exact(got, want, "captured canon batch")
+    comp = q.last
+    times, outs = _arm_times(torch, dev, dict(
+        eager=lambda: q.fn(states, qr, qc),
+        graph=lambda: q(states, qr, qc)), runs)
+    for name, out in outs.items():
+        _exact(out, want, f"{name} canon batch")
+    same_bytes = comp.copied_bytes
+    before = registry.launches()
+    q(states, qr, qc)
+    _sync(torch, dev)
+    per_replay = registry.launches()[MM] - before[MM]
+    want_launches = states.n_updates.shape[0] if on_card else 0
+    if per_replay != want_launches:
+        raise AssertionError(f"a replay launched merge_multi {per_replay} "
+                             f"times, want {want_launches}")
+    fresh = stream.clone_state(states)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    _exact(q(fresh, qr, qc), want, "canon batch on a fresh fleet")
+    fresh_ms = (time.perf_counter() - t0) * 1e3
+    res = dict(instances=int(states.n_updates.shape[0]), queries=queries,
+               runs=runs, eager_ms=times["eager"], graph_ms=times["graph"],
+               eager_median_ms=_median(times["eager"]),
+               graph_median_ms=_median(times["graph"]),
+               merge_multi_per_replay=per_replay,
+               copied_bytes_same_fleet=same_bytes,
+               copied_bytes_fresh_fleet=comp.copied_bytes,
+               fresh_fleet_ms=fresh_ms, replay_sync_mode=comp.replay_sync_mode)
+    if on_card:
+        res["eager_profile"] = device_profile(torch, lambda: q.fn(
+            states, qr, qc))
+        res["graph_profile"] = device_profile(torch, lambda: q(
+            states, qr, qc))
+        if comp.replay_sync_mode != 2:
+            raise AssertionError(f"replay under sync mode "
+                                 f"{comp.replay_sync_mode}")
+    q.release()
+    return res
+
+
+DECODE_LOGITS_TOL = 2e-2    # bf16 logits of two launch sequences, see below
+
+
+def decode_ab(torch, device, *, smoke: bool, runs: int, batch: int = 8,
+              prompt: int = 64, gen: int = 32) -> dict:
+    """(c): ``granite-moe-3b-a800m``'s ``config()`` whole (``smoke``: its
+    smoke config) served through ``serve.serve_steps`` at batch 8, prompt
+    64, gen 32: the decode loop eager (``decode.fn``) and captured,
+    ``runs`` timed runs a side interleaved after one untimed run of each
+    (the captured arm's warm-up and capture; later runs replay from the
+    first step, which copies the new prefill's cache into the graph's).
+    Tokens equal in every run.  Logits bit-equal under deterministic
+    algorithms (a fresh capture made under them); otherwise within
+    ``DECODE_LOGITS_TOL`` of the largest logit, since a matmul may pick
+    another cuBLAS algorithm for the capture stream's workspace.  Ms a
+    step, tok/s, and on the card kernels a step, busy share and peak
+    GiB."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import as_length
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    get = registry.get_smoke_config if smoke else registry.get_config
+    cfg = dataclasses.replace(get(GRANITE), prefill_microbatch=0)
+    _peak_reset(torch, dev)
+    params = tf.init(0, cfg, device=dev)
+    prompts = token_batch(0, batch, prompt - 1, cfg.vocab,
+                          device=dev)["tokens"]
+    prompts = torch.cat([prompts, torch.zeros((batch, 1), dtype=torch.int32,
+                                              device=dev)], dim=1)
+    prefill, decode = serve.serve_steps(cfg, prompt + gen, GRANITE, smoke)
+    last = {}
+
+    def run(step):
+        logits, cache, n = prefill(params, prompts)
+        length = as_length(n, dev)
+        toks = [torch.argmax(logits, dim=-1).to(torch.int32)]
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with serve.no_host_sync(dev):
+            for i in range(gen):
+                logits, cache = step(params, toks[-1][:, None].clone(),
+                                     cache, length + i)
+                toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        _sync(torch, dev)
+        last.update(cache=cache, tok=toks[-1][:, None], length=length)
+        return (torch.stack(toks, dim=1), logits.float().clone(),
+                time.perf_counter() - t0)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        te, le, _ = run(decode.fn)
+        tg, lg, _ = run(decode)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    decode.release()
+    if not (torch.equal(te, tg) and torch.equal(le, lg)):
+        raise AssertionError("decode under deterministic algorithms: the "
+                             "captured logits differ from the eager ones "
+                             f"by {float((le - lg).abs().max())}")
+    run(decode.fn)
+    run(decode)                                   # warm-up and capture
+    res = dict(batch=batch, prompt=prompt, gen=gen, runs=runs,
+               params=cfg.n_params, eager_ms_per_step=[],
+               graph_ms_per_step=[], logits_max_abs_err=0.0)
+    for _ in range(runs):
+        te, le, de = run(decode.fn)
+        tg, lg, dg = run(decode)
+        if not torch.equal(te, tg):
+            raise AssertionError("decode: captured tokens != eager tokens")
+        err = float((le - lg).abs().max())
+        if not err <= DECODE_LOGITS_TOL * float(le.abs().max()):
+            raise AssertionError(f"decode logits differ by {err}")
+        res["logits_max_abs_err"] = max(res["logits_max_abs_err"], err)
+        res["eager_ms_per_step"].append(de / gen * 1e3)
+        res["graph_ms_per_step"].append(dg / gen * 1e3)
+    for arm in ("eager", "graph"):
+        ms = _median(res[f"{arm}_ms_per_step"])
+        res[f"{arm}_median_ms_per_step"] = ms
+        res[f"{arm}_tok_s"] = batch / ms * 1e3
+    comp = decode.last
+    res.update(graph_copied_bytes_steady=comp.copied_bytes,
+               replays=comp.replays, logits_bit_equal_deterministic=True,
+               peak_gib=_peak_gib(torch, dev))
+    if on_card:
+        args = (params, last["tok"], last["cache"], last["length"])
+        res["eager_profile"] = device_profile(
+            torch, lambda: decode.fn(*args), top=4)
+        res["graph_profile"] = device_profile(
+            torch, lambda: decode(*args), top=4)
+        if comp.replay_sync_mode != 2:
+            raise AssertionError(f"replay under sync mode "
+                                 f"{comp.replay_sync_mode}")
+    decode.release()
+    return res
+
+
+def train_ab(torch, device, *, smoke: bool, batch: int, seq: int,
+             steps: int = TRAIN_AB_STEPS) -> dict:
+    """(d): ``granite-moe-3b-a800m``'s ``config()`` whole (nm 8) through
+    ``train._lm_setup``'s ``train.lm_step``, four arms of ``steps`` steps,
+    each from a state initialised anew from the seed: eager
+    (``wrapped.fn``) and through the front door (the first step the eager
+    warm-up, the second the capture and its first replay), first under
+    deterministic algorithms, then without; each step under the trainer's
+    sync guard and ended by reading its loss.  The gate is the
+    deterministic pair: losses and gnorms within rtol 1e-5 (the MoE
+    backward's atomic adds part even two eager runs without them; that
+    pair's difference is recorded, not checked).  Per arm the median step
+    ms of steps 2-6 (and of 3-6, the replays alone), tokens/s and peak
+    GiB; on the card one more step of each default-mode arm under
+    ``device_profile``."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve, train
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = (registry.get_smoke_config if smoke else registry.get_config)(
+        GRANITE)
+    args = train.make_args(arch=GRANITE, smoke=smoke, batch=batch, seq=seq,
+                           device=device, log_every=0)
+
+    def arm(graph: bool, profile: bool) -> dict:
+        _peak_reset(torch, dev)
+        state, step, data = train._lm_setup(cfg, args, dev)
+        fn = step if graph else step.fn
+        out = dict(losses=[], gnorms=[], step_ms=[])
+        for s in range(steps):
+            b = data(s)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            with serve.no_host_sync(dev):
+                state, m = fn(state, b)
+            out["losses"].append(float(m["loss"]))
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["gnorms"].append(float(m["gnorm"]))
+        out["peak_gib"] = _peak_gib(torch, dev)
+        if on_card and profile:
+            b = data(steps)
+
+            def one():
+                with serve.no_host_sync(dev):
+                    fn(state, b)
+            out["profile"] = device_profile(torch, one, top=4)
+        if graph:
+            out["copied_bytes"] = step.last.copied_bytes
+            out["replay_sync_mode"] = step.last.replay_sync_mode
+        step.release()
+        del state, m
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        for k, xs in (("2_6", out["step_ms"][1:]),
+                      ("3_6", out["step_ms"][2:])):
+            out[f"median_ms_steps_{k}"] = _median(xs)
+        out["tokens_per_s"] = batch * seq / out["median_ms_steps_2_6"] * 1e3
+        return out
+
+    def rel(a, b, key):
+        return max(abs(x - y) / abs(y) for x, y in zip(a[key], b[key]))
+
+    res = dict(params=cfg.n_params, batch=batch, seq=seq,
+               num_microbatches=cfg.num_microbatches, steps=steps)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        res["eager_det"] = arm(False, False)
+        res["graph_det"] = arm(True, False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for key in ("losses", "gnorms"):
+        err = rel(res["graph_det"], res["eager_det"], key)
+        if not err <= TRAIN_RTOL:
+            raise AssertionError(f"captured {key} {res['graph_det'][key]} "
+                                 f"vs eager {res['eager_det'][key]}: {err}")
+        res["graph_det"][f"{key}_max_rel_err"] = err
+    res["eager"] = arm(False, True)
+    res["graph"] = arm(True, True)
+    for key in ("losses", "gnorms"):
+        res["graph"][f"{key}_max_rel_err"] = rel(res["graph"], res["eager"],
+                                                 key)
+    for name in ("graph_det", "graph"):
+        if on_card and res[name]["replay_sync_mode"] != 2:
+            raise AssertionError("a train replay ran outside the sync guard")
+    return res
+
+
+def train_smoke_bits(torch, device) -> dict:
+    """(d): each LM arch's smoke config in float32, nm 2, under
+    deterministic algorithms: two ``train.lm_step`` steps eagerly and two
+    through the front door (on the card the second a replay), each from
+    the same seed's state: every parameter and moment bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve, train
+    from repro_torch.models import common
+    dev = torch.device(device)
+    res = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch in LM_ARCHS:
+            cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                                      dtype="float32", num_microbatches=2)
+            args = train.make_args(arch=arch, smoke=True, batch=4, seq=32,
+                                   lr=LM_TRAIN_LR, device=device,
+                                   log_every=0)
+            ends = []
+            for graph in (False, True):
+                state, step, data = train._lm_setup(cfg, args, dev)
+                fn = step if graph else step.fn
+                for s in range(2):
+                    with serve.no_host_sync(dev):
+                        state, _ = fn(state, data(s))
+                ends.append([x.clone() for x in common.tree_leaves(
+                    state["params"]) + common.tree_leaves(state["opt"])])
+                step.release()
+            same = all(torch.equal(a, b) for a, b in zip(*ends))
+            if not same:
+                raise AssertionError(f"{arch}: captured params or moments "
+                                     f"differ from the eager ones")
+            res[arch] = dict(leaves=len(ends[0]), bit_equal=same)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return res
+
+
+def capture_refused(torch) -> dict:
+    """(e): a ``"graph"`` entry whose function reads the host is refused at
+    its capture — the dispatch raises, no graph is kept and nothing falls
+    back to eager; run in a process of its own, since a failed capture
+    may leave its CUDA context unusable."""
+    out = subprocess.run([sys.executable, "-c", CAPTURE_REFUSED], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0 or "captures 0" not in out.stdout:
+        raise AssertionError(f"a host read was captured: rc "
+                             f"{out.returncode}\n{out.stdout}\n"
+                             f"{out.stderr[-2000:]}")
+    return dict(refused=out.stdout.strip().splitlines()[0])
+
+
+def stages_phase(torch, device, card: str, tmp: str, *,
+                 smoke: bool = False) -> dict:
+    """Phase 15: the ``stages`` front door.  (a) ``front_door_check``;
+    (b) ``canon_batch_ab``; (c) ``decode_ab``; (d) ``train_ab`` and
+    ``train_smoke_bits``; (e) on the card, ``capture_refused``, and every
+    replay of (b)-(d) under ``set_sync_debug_mode("error")``.  The eager
+    arm of each A/B calls the entry's ``wrapped.fn``; timings leave out
+    the warm-up and capture dispatches.  ``smoke`` runs at small sizes
+    (the CPU rehearsal, where every entry is eager)."""
+    from repro_torch import stages
+    t0 = time.perf_counter()
+    small = dict(instances=3, blocks=16, block_size=32, cuts="64,256,1024",
+                 scale=10, rounds=4, queries=64, top_k=4) if smoke else None
+    res = {}
+    res["front_door"], states = front_door_check(torch, device, tmp, small)
+    print(f"(a) precompile_fleet {json.dumps(res['front_door'])}; {card}",
+          flush=True)
+    res["canon_batch"] = canon_batch_ab(
+        torch, states, device, queries=64 if smoke else 256)
+    del states
+    r = res["canon_batch"]
+    print(f"(b) canon query batch {r['instances']} x {r['queries']}: eager "
+          f"{r['eager_median_ms']:.3f} ms, captured "
+          f"{r['graph_median_ms']:.3f} ms (median of {r['runs']} each, "
+          f"interleaved), answers equal; {r['merge_multi_per_replay']} "
+          f"merge_multi a replay; copied {r['copied_bytes_same_fleet']} B "
+          f"(same fleet) / {r['copied_bytes_fresh_fleet']} B (fresh fleet, "
+          f"{r['fresh_fleet_ms']:.3f} ms); {card}", flush=True)
+    res["decode"] = decode_ab(torch, device, smoke=smoke, runs=STAGES_RUNS,
+                              **(dict(batch=2, prompt=16, gen=4) if smoke
+                                 else {}))
+    r = res["decode"]
+    print(f"(c) {GRANITE} decode b{r['batch']} p{r['prompt']} g{r['gen']}: "
+          f"eager {r['eager_median_ms_per_step']:.3f} ms a step "
+          f"({r['eager_tok_s']:.1f} tok/s), captured "
+          f"{r['graph_median_ms_per_step']:.3f} ms ({r['graph_tok_s']:.1f} "
+          f"tok/s), median of {r['runs']} runs each; tokens equal, logits "
+          f"max abs err {r['logits_max_abs_err']} (bit-equal under "
+          f"deterministic algorithms); peak {r['peak_gib']} GiB; {card}",
+          flush=True)
+    res["train_smoke_bits"] = train_smoke_bits(torch, device)
+    print(f"(d) smoke configs, float32, nm 2, deterministic: captured == "
+          f"eager bit for bit {json.dumps(res['train_smoke_bits'])}",
+          flush=True)
+    res["train"] = train_ab(torch, device, smoke=smoke,
+                            **(dict(batch=4, seq=32) if smoke
+                               else dict(batch=8, seq=1024)))
+    r = res["train"]
+    for mode, e, g in (("deterministic", "eager_det", "graph_det"),
+                       ("default", "eager", "graph")):
+        print(f"(d) {GRANITE} train {r['batch']} x {r['seq']} nm "
+              f"{r['num_microbatches']}, {mode} algorithms: eager "
+              f"{r[e]['median_ms_steps_2_6']:.2f} ms a step, captured "
+              f"{r[g]['median_ms_steps_2_6']:.2f} ms (steps 3-6: "
+              f"{r[g]['median_ms_steps_3_6']:.2f}); losses within "
+              f"{r[g]['losses_max_rel_err']}, peak {r[e]['peak_gib']} / "
+              f"{r[g]['peak_gib']} GiB; {card}", flush=True)
+    if torch.device(device).type == "cuda":
+        res["capture_refused"] = capture_refused(torch)
+        print(f"(e) {res['capture_refused']['refused']}; every replay under "
+              f"sync debug mode error", flush=True)
+    res["stats"] = {k: v for k, v in stages.stats().items()
+                    if k != "per_entry"}
+    stages.clear_memory_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
 
 
 def main() -> int:
@@ -3144,6 +3662,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_lm_phase(torch, "cuda", card, tmp)
     print(f"phase 14 wall {trained['wall_s']:.1f} s; {card}", flush=True)
+
+    phase("15 the stages front door: precompile_fleet, captured CUDA graphs "
+          "for the canon query batch, granite-moe-3b-a800m decode and its "
+          "training step, against their eager arms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        staged = stages_phase(torch, "cuda", card, tmp)
+    print(f"phase 15 wall {staged['wall_s']:.1f} s; {card}", flush=True)
     fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
                       for r in fleet["runs"]}
     fleet_launches.update({f"{s} gloo P=2": fleet[s]["merge_multi"]
@@ -3175,11 +3702,17 @@ def main() -> int:
             kernels_per_call=rec.get("kernels_per_call")))
         kernels[-1].update({k: v for k, v in rec.items()
                             if k not in kernels[-1] and k != "ops_kernels"})
-    # phase 12's launches, summed over each fleet's ranks
+    # phase 12's launches, summed over each fleet's ranks; phase 9's query
+    # batches' (the warm-up's eager batch, then replays) and phase 15's
     kernels[0]["phase12_launches"] = fleet_launches
+    kernels[0]["phase9_query_launches"] = svc["query_launches"][MM]
+    kernels[0]["phase9_replay_launches"] = svc["query_replay_launches"]
+    kernels[0]["phase15_launches_per_replay"] = \
+        staged["canon_batch"]["merge_multi_per_replay"]
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": served, "card": card}))
     print(json.dumps({"train_lm": trained, "card": card}))
+    print(json.dumps({"stages": staged, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

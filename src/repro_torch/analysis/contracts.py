@@ -27,16 +27,14 @@ checks broadcast over leading instance axes.
 
 Activation: ``REPRO_CHECK=1`` (or an explicit ``debug=True`` to
 ``enabled``) makes the front doors — ``hier.update`` / ``hier.flush``,
-``stream.update_instances`` / ``ingest_instances``,
-``query.engine.point_lookup``, ``checkpoint.restore`` — check their input
+``stream.update_instances`` / ``ingest_instances``, the
+``query.engine`` queries, ``checkpoint.restore`` — check their input
 state before and their output state after, and every ``assoc.merge_many``
-inside them its runs and result (``activate``).  With the knob off they
-run no check: no device operation and no host read.
-
-Left out: the reference's ``DEBUG_EXTRA``, ``debug_signature`` and
-``sig_debug`` key a separate compiled program for the checked build in
-its compile cache; the port has no such cache yet (it comes with the
-``stages`` port), so there is nothing for them to key.
+inside them its runs and result (``activate``).  The checked build keys
+its own ``stages`` entry: its signature carries ``DEBUG_EXTRA``
+(``debug_signature``), and that entry is always eager, because a check
+reads the host.  With the knob off the front doors dispatch the
+production key and run no check: no device operation and no host read.
 """
 from __future__ import annotations
 
@@ -56,6 +54,10 @@ SENTINEL = 2**31 - 1
 
 ENV_VAR = "REPRO_CHECK"
 
+# Appended to Signature.extra by the checked front doors: the checked
+# build keys a separate stages cache entry.
+DEBUG_EXTRA: Tuple[Tuple[str, bool], ...] = (("debug", True),)
+
 _ACTIVE = threading.local()
 
 
@@ -69,6 +71,25 @@ def enabled(debug: Optional[bool] = None) -> bool:
     if debug is not None:
         return bool(debug)
     return os.environ.get(ENV_VAR, "") not in ("", "0")
+
+
+def sig_debug(sig) -> bool:
+    """True when a ``stages.Signature`` carries the debug knob."""
+    return ("debug", True) in tuple(sig.extra)
+
+
+def debug_signature(sig):
+    """The signature's checked twin (idempotent)."""
+    import dataclasses
+    if sig_debug(sig):
+        return sig
+    return dataclasses.replace(sig, extra=tuple(sig.extra) + DEBUG_EXTRA)
+
+
+def front_door_signature(sig):
+    """``sig``, or its checked twin when the knob is on: the key a front
+    door dispatches."""
+    return debug_signature(sig) if enabled() else sig
 
 
 def deep_checks_active() -> bool:
@@ -188,13 +209,11 @@ def check_hier(h, sr: Semiring = sr_mod.PLUS_TIMES,
 
 def checked(name: str, h, sr: Semiring, run, l0_sorted: bool,
             out_l0_sorted: Optional[bool] = None):
-    """A front door's ``run()`` under the knob: with it off, just
-    ``run()``; with it on, ``h`` checked first (layer 0 as a raw buffer
+    """The checked build of a front door's ``run()`` (the body of a
+    ``DEBUG_EXTRA`` entry): ``h`` checked first (layer 0 as a raw buffer
     unless ``l0_sorted``), every merge inside deep-checked, and the result
     — when it is a state, or a tuple led by one — checked after (layer 0
     by ``out_l0_sorted``, default ``l0_sorted``)."""
-    if not enabled():
-        return run()
     check_hier(h, sr, l0_sorted=l0_sorted, name=f"{name} input")
     with activate():
         out = run()

@@ -18,6 +18,10 @@ package's do and return a callable over the rank's LOCAL block:
                  the rank's instances, then ONE ``all_reduce`` over the
                  group, so every rank holds the fleet's answer.
 
+Each returned callable is a ``stages.Wrapped`` (eager) under the
+reference's entry name (``distributed.sharded_ingest_fn``, ...), keyed
+by its mesh too.
+
 The local reduce then ``all_reduce`` adds floats in another order than
 the reference's vmap sum then ``psum``: sums agree exactly on
 integer-valued streams, within the registry rtol otherwise.
@@ -119,9 +123,9 @@ def sharded_ingest_fn(mesh, data_axes: Tuple[str, ...],
     ...]``, streams ``[I/P, T, B]``).  No collective on the update path —
     the paper's share-nothing design; every knob is
     ``stream.ingest_instances``'s."""
-    stages.signature_of(sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0,
-                        fused=fused, chunk=chunk, batch_mode=batch_mode,
-                        mesh=mesh, data_axes=data_axes)
+    sig = stages.signature_of(sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0,
+                              fused=fused, chunk=chunk, batch_mode=batch_mode,
+                              mesh=mesh, data_axes=data_axes)
 
     def dist_ingest(states, rows, cols, vals):
         return stream.ingest_instances(states, rows, cols, vals, sr=sr,
@@ -129,7 +133,8 @@ def sharded_ingest_fn(mesh, data_axes: Tuple[str, ...],
                                        fused=fused, chunk=chunk,
                                        batch_mode=batch_mode)
 
-    return dist_ingest
+    return stages.wrap(dist_ingest, "distributed.sharded_ingest_fn", sig,
+                       static=(("mesh", mesh),), donate_argnums=(0,))
 
 
 def _mesh_semiring_combine(sr: Semiring, x: torch.Tensor, mesh,
@@ -161,9 +166,9 @@ def sharded_query_fn(mesh, data_axes: Tuple[str, ...],
     """
     from repro_torch.query import engine
 
-    stages.signature_of(sr=sr, use_kernel=use_kernel, l0_mode=l0_mode,
-                        mesh=mesh, data_axes=data_axes,
-                        extra=(("per_instance", per_instance),))
+    sig = stages.signature_of(sr=sr, use_kernel=use_kernel, l0_mode=l0_mode,
+                              mesh=mesh, data_axes=data_axes,
+                              extra=(("per_instance", per_instance),))
 
     def dist_query(states, q_rows, q_cols):
         local = engine.point_lookup(states, q_rows, q_cols, sr=sr,
@@ -173,7 +178,8 @@ def sharded_query_fn(mesh, data_axes: Tuple[str, ...],
         local = engine.reduce_axis(sr, local, axis=0)
         return _mesh_semiring_combine(sr, local, mesh, data_axes)
 
-    return dist_query
+    return stages.wrap(dist_query, "distributed.sharded_query_fn", sig,
+                       static=(("mesh", mesh),))
 
 
 def _local_degree_histogram(states: HierAssoc, num_rows: int,
@@ -206,15 +212,16 @@ def global_degree_histogram_fn(mesh, data_axes: Tuple[str, ...],
     fleet, ``fn(states) -> int32 [num_bins]`` on every rank: the rank's
     own histogram then one ``all_reduce(SUM)`` — the "reduce globally"
     analytics pattern of §II."""
-    stages.signature_of(sr=sr, mesh=mesh, data_axes=data_axes,
-                        extra=(("num_rows", int(num_rows)),
-                               ("num_bins", int(num_bins))))
+    sig = stages.signature_of(sr=sr, mesh=mesh, data_axes=data_axes,
+                              extra=(("num_rows", int(num_rows)),
+                                     ("num_bins", int(num_bins))))
 
     def histogram(states):
         local = _local_degree_histogram(states, num_rows, num_bins, sr)
         return _all_reduce(mesh, data_axes, local, "SUM")
 
-    return histogram
+    return stages.wrap(histogram, "distributed.global_degree_histogram",
+                       sig, static=(("mesh", mesh),))
 
 
 def aggregate_update_counts_fn(mesh, data_axes: Tuple[str, ...]):
@@ -223,10 +230,15 @@ def aggregate_update_counts_fn(mesh, data_axes: Tuple[str, ...]):
     instance (``hier.exact_update_count``), so the local sum and the
     ``all_reduce`` stay in int64 and the total is exact past 2**31, 2**32
     and 2**33 (the reference rebuilds it from 32-bit words)."""
-    stages.signature_of(mesh=mesh, data_axes=data_axes)
+    def count_parts(states):
+        total = states.n_updates.sum().reshape(1)
+        return _all_reduce(mesh, data_axes, total, "SUM")
+
+    parts = stages.wrap(count_parts, "distributed.aggregate_update_counts",
+                        stages.signature_of(mesh=mesh, data_axes=data_axes),
+                        static=(("mesh", mesh),))
 
     def count(states):
-        total = states.n_updates.sum().reshape(1)
-        return np.int64(_all_reduce(mesh, data_axes, total, "SUM").item())
+        return np.int64(parts(states).item())
 
     return count

@@ -132,7 +132,17 @@ def metrics_snapshot(h: HierAssoc) -> dict:
     empty), overflow, and the exact update total as the reference's word
     pair: ``updates_lo`` (the low 32 bits, as int64) and ``updates_hi``
     (int32).  The host transfer is the caller's
-    (``obs.metrics.fleet_sample``)."""
+    (``obs.metrics.fleet_sample``).  Knob-free: the signature pins
+    geometry only, so every variant of a fleet shares one entry."""
+    return metrics_snapshot_wrapped(stages.signature_for_state(h))(h)
+
+
+def metrics_snapshot_wrapped(sig: stages.Signature) -> stages.Wrapped:
+    """Keyed snapshot program for one hierarchy geometry (eager)."""
+    return stages.wrap(_metrics_snapshot_body, "hier.metrics_snapshot", sig)
+
+
+def _metrics_snapshot_body(h: HierAssoc) -> dict:
     nnz = [l.nnz for l in h.layers]
     nnz_total = torch.stack([torch.sum(n).to(torch.int32) for n in nnz])
     occupancy = torch.stack([torch.mean(n.to(torch.float32)) / c
@@ -511,11 +521,27 @@ def update(h: HierAssoc, rows, cols, vals, mask=None,
         batch_mode=batch_mode,
         allowed_batch_modes=("switch", "branchfree"))
     rows, cols, vals, mask = _as_block(h, rows, cols, vals, mask)
+    return update_wrapped(contracts.front_door_signature(sig))(
+        h, rows, cols, vals, mask)
+
+
+def update_wrapped(sig: stages.Signature) -> stages.Wrapped:
+    """Keyed block-update program for one config signature (eager: a spill
+    plan is read on the host).  A signature carrying
+    ``contracts.DEBUG_EXTRA`` keys the checked build."""
     sr = sr_mod.get(sig.sr)
-    return contracts.checked(
-        "hier.update", h, sr,
-        lambda: _update_body(h, rows, cols, vals, mask, sr, sig),
-        l0_sorted=not lazy_l0)
+
+    def run(h, rows, cols, vals, mask):
+        return _update_body(h, rows, cols, vals, mask, sr, sig)
+
+    if contracts.sig_debug(sig):
+        def checked(h, rows, cols, vals, mask):
+            return contracts.checked(
+                "hier.update", h, sr,
+                lambda: run(h, rows, cols, vals, mask),
+                l0_sorted=not sig.lazy_l0)
+        return stages.wrap(checked, "hier.update", sig)
+    return stages.wrap(run, "hier.update", sig)
 
 
 def _update_body(h: HierAssoc, rows, cols, vals, mask, sr: Semiring,
@@ -558,8 +584,24 @@ def query_all(h: HierAssoc, sr: Semiring = sr_mod.PLUS_TIMES,
     the pairwise reference path; it needs ``lazy_l0=True`` when the
     hierarchy is operated with lazy layer-0 appends.
     """
-    sr = sr_mod.get(stages.signature_for_state(
-        h, sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0, fused=fused).sr)
+    sig = stages.signature_for_state(h, sr=sr, use_kernel=use_kernel,
+                                     lazy_l0=lazy_l0, fused=fused)
+    return query_all_wrapped(sig)(h)
+
+
+def query_all_wrapped(sig: stages.Signature) -> stages.Wrapped:
+    """Keyed merge-all-layers program for one config signature (eager)."""
+    sr = sr_mod.get(sig.sr)
+
+    def run(h):
+        return _query_all_body(h, sr, sig.use_kernel, sig.lazy_l0,
+                               sig.fused)
+
+    return stages.wrap(run, "hier.query_all", sig)
+
+
+def _query_all_body(h: HierAssoc, sr: Semiring, use_kernel: bool,
+                    lazy_l0: bool, fused: bool) -> AssocSegment:
     cap = sum(h.capacities)
     l0 = h.layers[0]
     if fused:
@@ -591,6 +633,26 @@ def lookup(h: HierAssoc, row, col, sr: Semiring = sr_mod.PLUS_TIMES,
     query engine, ``query/engine.py``)."""
     from repro_torch.query import engine
     return engine.lookup(h, row, col, sr=sr, use_kernel=use_kernel)
+
+
+def lookup_layered(h: HierAssoc, row, col,
+                   sr: Semiring = sr_mod.PLUS_TIMES) -> Tensor:
+    """Reference point query: full per-layer scans, scalar row/col (the
+    engine's oracle).  Layer 0 is queried under the raw-buffer contract
+    (live slots gated by ``nnz``), valid whether it is a lazy append
+    buffer or canonical; deeper layers are canonical."""
+    vals = [assoc.lookup(l, row, col, sr, sorted=i > 0)
+            for i, l in enumerate(h.layers)]
+    out = vals[0]
+    for v in vals[1:]:
+        out = sr.add(out, v)
+    return out
+
+
+def total_nnz_upper_bound(h: HierAssoc) -> Tensor:
+    """Sum of per-layer nnz (keys may repeat across layers), over every
+    instance of a batch: an int32 scalar."""
+    return torch.stack([l.nnz for l in h.layers]).sum(dtype=torch.int32)
 
 
 def _flush_fused(h: HierAssoc, sr: Semiring, use_kernel: bool) -> HierAssoc:
@@ -627,12 +689,27 @@ def flush(h: HierAssoc, sr: Semiring = sr_mod.PLUS_TIMES,
     input and the drained output are checked (every layer of the output is
     canonical, layer 0 emptied).
     """
-    sr = sr_mod.get(stages.signature_for_state(
-        h, sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0, fused=fused).sr)
-    return contracts.checked(
-        "hier.flush", h, sr,
-        lambda: _flush_body(h, sr, use_kernel, lazy_l0, fused),
-        l0_sorted=not lazy_l0, out_l0_sorted=True)
+    sig = stages.signature_for_state(h, sr=sr, use_kernel=use_kernel,
+                                     lazy_l0=lazy_l0, fused=fused)
+    return flush_wrapped(contracts.front_door_signature(sig))(h)
+
+
+def flush_wrapped(sig: stages.Signature) -> stages.Wrapped:
+    """Keyed force-spill program for one config signature (eager).  A
+    signature carrying ``contracts.DEBUG_EXTRA`` keys the checked build:
+    every layer of the drained output is checked as canonical."""
+    sr = sr_mod.get(sig.sr)
+
+    def run(h):
+        return _flush_body(h, sr, sig.use_kernel, sig.lazy_l0, sig.fused)
+
+    if contracts.sig_debug(sig):
+        def checked(h):
+            return contracts.checked("hier.flush", h, sr, lambda: run(h),
+                                     l0_sorted=not sig.lazy_l0,
+                                     out_l0_sorted=True)
+        return stages.wrap(checked, "hier.flush", sig)
+    return stages.wrap(run, "hier.flush", sig)
 
 
 def _flush_body(h: HierAssoc, sr: Semiring, use_kernel: bool,

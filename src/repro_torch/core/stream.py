@@ -25,6 +25,11 @@ telemetry.
 The fleet state is cloned once per ``ingest_instances`` /
 ``update_instances`` call and then updated in place, member by member: the
 caller's state is never modified.
+
+Every public entry dispatches through ``stages`` under the reference's
+entry names (``stream.ingest``, ``stream.ingest_jit``,
+``stream.update_instances``, ``stream.ingest_instances``), all eager: a
+step reads its depth plan on the host, so it cannot be captured.
 """
 from __future__ import annotations
 
@@ -107,18 +112,53 @@ def ingest(h: HierAssoc, rows, cols, vals,
         allowed_batch_modes=("switch", "branchfree"))
     rows, cols, vals = (torch.as_tensor(x, device=h.device)
                         for x in (rows, cols, vals))
-    if sig.chunk > 1:
-        rows, cols, vals = _chunk_stream(rows, cols, vals, sig.chunk,
-                                         sig.fused,
-                                         h.layers[0].capacity - h.cuts[0])
-    snaps = []
-    for t in range(rows.shape[0]):
-        h = hier.update(h, rows[t], cols[t], vals[t], sr=sig.sr,
-                        use_kernel=sig.use_kernel, lazy_l0=sig.lazy_l0,
-                        fused=sig.fused, batch_mode=sig.batch_mode)
-        snaps.append(_snapshot(h))
-    return h, _normalize_chunked_telemetry(_stack_telemetry(snaps, 0),
-                                           sig.chunk)
+    return _ingest_wrapped(sig)(h, rows, cols, vals)
+
+
+def _ingest_wrapped(sig: stages.Signature) -> stages.Wrapped:
+    """Keyed single-instance ingest program for one config signature."""
+    def run(h, rows, cols, vals):
+        if sig.chunk > 1:
+            rows, cols, vals = _chunk_stream(
+                rows, cols, vals, sig.chunk, sig.fused,
+                h.layers[0].capacity - h.cuts[0])
+        snaps = []
+        for t in range(rows.shape[0]):
+            h = hier.update(h, rows[t], cols[t], vals[t], sr=sig.sr,
+                            use_kernel=sig.use_kernel, lazy_l0=sig.lazy_l0,
+                            fused=sig.fused, batch_mode=sig.batch_mode)
+            snaps.append(_snapshot(h))
+        return h, _normalize_chunked_telemetry(_stack_telemetry(snaps, 0),
+                                               sig.chunk)
+
+    return stages.wrap(run, "stream.ingest", sig)
+
+
+def ingest_jit(cuts: Tuple[int, ...], block_size: int, dtype=torch.float32,
+               sr: Semiring = sr_mod.PLUS_TIMES, *,
+               use_kernel: bool = False,
+               lazy_l0: bool = False,
+               fused: bool = True,
+               chunk: int = 1,
+               batch_mode: str = "switch") -> stages.Wrapped:
+    """A staged (state, [T, B] stream) -> (state, telemetry) ingest
+    program pinned to one geometry: knobs validate through
+    ``stages.signature_of``, and a state or stream of another geometry
+    fails with ``stages.check_state``'s message."""
+    sig = stages.signature_of(
+        cuts=cuts, block_size=block_size, dtype=dtype, sr=sr,
+        use_kernel=use_kernel, lazy_l0=lazy_l0, fused=fused, chunk=chunk,
+        batch_mode=batch_mode,
+        allowed_batch_modes=("switch", "branchfree"))
+
+    def run(h, rows, cols, vals):
+        stages.check_state(sig, h, block=rows.shape[-1])
+        return ingest(h, rows, cols, vals, sr=sig.sr,
+                      use_kernel=sig.use_kernel, lazy_l0=sig.lazy_l0,
+                      fused=sig.fused, chunk=sig.chunk,
+                      batch_mode=sig.batch_mode)
+
+    return stages.wrap(run, "stream.ingest_jit", sig)
 
 
 def clone_state(states: HierAssoc) -> HierAssoc:
@@ -236,16 +276,33 @@ def update_instances(states: HierAssoc, rows, cols, vals,
     ``REPRO_CHECK=1`` the input and output states, the planned depths and
     every merge are checked (``analysis/contracts.py``).
     """
-    stages.signature_for_state(
+    sig = contracts.front_door_signature(stages.signature_for_state(
         states, sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0,
-        batch_mode=batch_mode, allowed_batch_modes=("grouped", "bucketed"))
+        batch_mode=batch_mode, allowed_batch_modes=("grouped", "bucketed"),
+        extra=(("masked", mask is not None),)))
     rows, cols, vals, mask = hier._as_block(states, rows, cols, vals, mask)
-    sr = sr_mod.get(getattr(sr, "name", sr))
-    return contracts.checked(
-        "stream.update_instances", states, sr,
-        lambda: _update_instances_(clone_state(states), rows, cols, vals, sr,
-                                   use_kernel, lazy_l0, batch_mode, mask),
-        l0_sorted=not lazy_l0)
+    return stages.dispatch("stream.update_instances", sig,
+                           lambda: _update_instances_impl(sig),
+                           states, rows, cols, vals, mask)
+
+
+def _update_instances_impl(sig: stages.Signature):
+    sr = sr_mod.get(sig.sr)
+
+    def run(states, rows, cols, vals, mask):
+        return _update_instances_(clone_state(states), rows, cols, vals, sr,
+                                  sig.use_kernel, sig.lazy_l0,
+                                  sig.batch_mode, mask)
+
+    if not contracts.sig_debug(sig):
+        return run
+
+    def checked(states, rows, cols, vals, mask):
+        return contracts.checked(
+            "stream.update_instances", states, sr,
+            lambda: run(states, rows, cols, vals, mask),
+            l0_sorted=not sig.lazy_l0)
+    return checked
 
 
 def _update_instances_(states, rows, cols, vals, sr, use_kernel, lazy_l0,
@@ -305,13 +362,47 @@ def ingest_instances(states: HierAssoc, rows, cols, vals,
         chunk=chunk, batch_mode=batch_mode)
     rows, cols, vals = (torch.as_tensor(x, device=states.device)
                         for x in (rows, cols, vals))
+    out = ingest_instances_jit(contracts.front_door_signature(sig),
+                               with_telemetry=with_telemetry)(
+        states, rows, cols, vals)
+    return out if with_telemetry else (out, None)
+
+
+def ingest_instances_jit(sig: stages.Signature = None, *,
+                         with_telemetry: bool = True, donate: bool = False,
+                         **knobs) -> stages.Wrapped:
+    """Staged (states, [I, T, B] stream) -> (states[, telemetry]) program.
+
+    The one builder behind every instance-batched ingest dispatch —
+    ``ingest_instances``, ``launch/ingest.py`` and
+    ``query.service.make_ingest_fn`` (``with_telemetry=False,
+    donate=True``: the state alone is returned) — so they share one cache
+    entry per signature and ``stages.precompile_fleet`` makes exactly the
+    programs the CLIs dispatch.  Build it from a ``Signature`` or from
+    knob keywords.  Eager: each step reads its depth plan on the host.  A
+    signature carrying ``contracts.DEBUG_EXTRA`` keys the checked build.
+    """
+    if sig is None:
+        sig = stages.signature_of(**knobs)
     sr = sr_mod.get(sig.sr)
-    return contracts.checked(
-        "stream.ingest_instances", states, sr,
-        lambda: _ingest_instances(states, rows, cols, vals, sr, use_kernel,
-                                  lazy_l0, fused, chunk, batch_mode,
-                                  with_telemetry),
-        l0_sorted=not lazy_l0)
+
+    def run(states, rows, cols, vals):
+        out = _ingest_instances(states, rows, cols, vals, sr,
+                                sig.use_kernel, sig.lazy_l0, sig.fused,
+                                sig.chunk, sig.batch_mode or "grouped",
+                                with_telemetry)
+        return out if with_telemetry else out[0]
+
+    fn = run
+    if contracts.sig_debug(sig):
+        def fn(states, rows, cols, vals):
+            return contracts.checked(
+                "stream.ingest_instances", states, sr,
+                lambda: run(states, rows, cols, vals),
+                l0_sorted=not sig.lazy_l0)
+    return stages.wrap(fn, "stream.ingest_instances", sig,
+                       static=(("telemetry", with_telemetry),),
+                       donate_argnums=(0,) if donate else None)
 
 
 def _ingest_instances(states, rows, cols, vals, sr, use_kernel, lazy_l0,

@@ -1,7 +1,7 @@
 """Synthetic token and recsys streams: Zipf token batches for the LMs, a
-Criteo-style click stream (13 dense + 26 categorical fields) with a
-planted logistic teacher, and the retrieval shape — the port of
-``repro/data/synthetic.py``.
+Criteo-style click stream (13 dense + 26 categorical fields, one batch a
+step of ``recsys_stream``) with a planted logistic teacher, and the
+retrieval shape — the port of ``repro/data/synthetic.py``.
 
 Everything is drawn on the device from a ``torch.Generator`` seeded with
 ``seed``, with the reference's formulas; the bits differ from JAX's.
@@ -64,6 +64,14 @@ def recsys_batch(seed: int, batch: int, n_dense: int = 13,
     labels = (torch.rand((batch,), generator=gen, device=dev)
               < torch.sigmoid(teacher)).float()
     return dict(dense=dense, sparse=sparse, labels=labels)
+
+
+def recsys_stream(seed: int, steps: int, batch: int, **kw):
+    """Host-side iterator of ``recsys_batch``es; step i's comes from the
+    seed ``(seed << 32) | i`` (the reference folds i into its key), and
+    ``kw`` are ``recsys_batch``'s."""
+    for i in range(steps):
+        yield recsys_batch((int(seed) << 32) | i, batch, **kw)
 
 
 def retrieval_batch(seed: int, batch: int, n_candidates: int, dim: int, *,

@@ -14,6 +14,9 @@ and spills per kernel) is kept in ``LOG``.  Each build writes to a
 ``.<pid>.tmp`` file renamed over the library when it succeeds, so the
 ranks of a fleet that find a source stale at once never write the same
 path, nor load a half-written library.  Nothing here runs at import.
+``set_build_dir`` moves the libraries elsewhere (``stages.set_cache_dir``
+points it at ``<cache dir>/build``); ``ON_BUILD``, when set, hears how
+many libraries each ``build_all`` built and how many it found current.
 """
 from __future__ import annotations
 
@@ -27,12 +30,21 @@ from pathlib import Path
 from repro_torch.kernels import registry
 
 KERNELS_DIR = Path(__file__).resolve().parent
-BUILD_DIR = KERNELS_DIR.parents[2] / "build"
+DEFAULT_BUILD_DIR = KERNELS_DIR.parents[2] / "build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LOG: dict = {}        # source -> compiler output of its last build
 _LOADED: dict = {}    # source -> ctypes.CDLL
+ON_BUILD = None       # callable(built, reused), or None
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` (None: ``build/`` at the root of
+    the checkout).  Libraries already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path) if path else DEFAULT_BUILD_DIR
 
 
 def nvcc() -> str:
@@ -58,6 +70,8 @@ def build_all(sources=registry.AUDITED_FILES) -> float:
     Raises with the compiler's output if any build fails."""
     todo = [s for s in sources if _stale(s)]
     if not todo:
+        if ON_BUILD is not None:
+            ON_BUILD(0, len(sources))
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -77,6 +91,8 @@ def build_all(sources=registry.AUDITED_FILES) -> float:
             failed.append(f"{s} (exit {p.returncode}):\n{LOG[s]}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    if ON_BUILD is not None:
+        ON_BUILD(len(todo), len(sources) - len(todo))
     return time.perf_counter() - t0
 
 

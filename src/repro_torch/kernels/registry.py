@@ -15,7 +15,9 @@ kernel (never the plain version): ``hier_merge.merge_multi``,
 ``segment_agg.segment_sum``; plus ``assoc.sort_route``: every
 canonicalization that went through ``torch.sort`` instead — above the
 kernel ceiling, or with the kernels off.  A run resets the counters, drives
-its path, and reads them to show which route each merge took.
+its path, and reads them to show which route each merge took.  A
+wrapper launched inside a captured CUDA graph counts at every replay
+(``add_launches``), not at the capture.
 
 ``AUDITED_FILES`` names the CUDA sources (relative to this package) that
 define kernels; ``build.py`` compiles exactly these.
@@ -45,6 +47,15 @@ LAUNCHES = {
 def count(name: str) -> None:
     """Add one launch of ``name`` (called by the wrapper that launched)."""
     LAUNCHES[name] += 1
+
+
+def add_launches(counts: dict, sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` to the counters: a captured CUDA graph
+    (``stages``) adds the launches recorded at its capture at every
+    replay, and takes back the ones counted at the capture itself, where
+    nothing ran."""
+    for k, n in counts.items():
+        LAUNCHES[k] += sign * n
 
 
 def reset_launches() -> None:

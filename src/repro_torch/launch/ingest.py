@@ -18,6 +18,11 @@ latest checkpoint, and a restored fleet can change its instance count
 (``runtime/elastic.py``).  Round r's stream comes from a generator seeded
 from (seed, r), so a resumed run draws the rounds it missed exactly as an
 uninterrupted run does.
+
+``--precompile`` makes the config's whole dispatch set up front
+(``stages.precompile_fleet``), so the run itself adds no compile;
+``--stages-cache DIR`` keeps the kernel libraries under ``DIR/build``
+(``stages.set_cache_dir``).
 """
 from __future__ import annotations
 
@@ -72,12 +77,21 @@ def run_with_state(args):
     states = distributed.create_instances(
         args.instances, sig.cuts, args.block_size, device=device)
     stages.check_state(sig, states, block=args.block_size)
-    blocks_per_round = max(args.blocks // args.rounds, 1)
+    if args.stages_cache:
+        stages.set_cache_dir(args.stages_cache)
     if args.obs:
         from repro_torch import obs
         from repro_torch.obs import metrics as obs_metrics
         from repro_torch.obs import trace as obs_trace
         obs.enable(args.obs_dir or None)
+    blocks_per_round = max(args.blocks // args.rounds, 1)
+    if args.precompile:
+        report = stages.precompile_fleet(
+            sig, instances=args.instances, blocks=blocks_per_round,
+            device=device)
+        if args.verbose:
+            for entry, how in report.items():
+                print(f"[precompile] {entry}: {how}")
 
     start_round = 0
     if args.ckpt_dir and args.resume:
@@ -138,8 +152,7 @@ def run_with_state(args):
                n_updates_counter=hier.exact_update_count(states),
                overflow=int(torch.sum(states.overflow)))
     if args.obs:
-        # the reference also exports its compile-cache gauges here
-        # (obs.metrics.export_stages_gauges); they wait for the stages port
+        obs_metrics.export_stages_gauges()
         obs_trace.emit("metrics", **obs_metrics.REGISTRY.snapshot())
         obs_trace.emit("run_summary", kind="ingest", **out)
     return out, states
@@ -182,6 +195,12 @@ def parser() -> argparse.ArgumentParser:
                     "instance pays only its own merge (production default); "
                     "bucketed = every merge sized to the step's deepest; "
                     "branchfree / switch = each instance on its own")
+    ap.add_argument("--stages-cache", dest="stages_cache", default="",
+                    help="persistent compile-cache directory "
+                    "(repro.stages.set_cache_dir)")
+    ap.add_argument("--precompile", action="store_true",
+                    help="compile the whole dispatch set up front "
+                    "(stages.precompile_fleet) before streaming")
     ap.add_argument("--obs", action="store_true",
                     help="emit obs.jsonl observability events (per-round "
                     "fleet samples and spans, the run summary); aggregate "

@@ -14,6 +14,9 @@ Runs on the CUDA device unless ``--device cpu``.
 
 Defaults for the query knobs come from ``configs/d4m_stream.py``
 (``query_batch``/``query_l0_mode``/``queries_per_round``).
+``--precompile`` makes the dispatch set up front at the service's shapes
+(``stages.precompile_fleet``); ``--stages-cache DIR`` keeps the kernel
+libraries under ``DIR/build``.
 """
 from __future__ import annotations
 
@@ -51,9 +54,24 @@ def run_with_states(args):
         analytics_k=args.top_k,
         slo_p99_ms=args.slo_p99_ms,
     )
+    if args.stages_cache:
+        stages.set_cache_dir(args.stages_cache)
     if args.obs:
         from repro_torch import obs
         obs.enable(args.obs_dir or None)
+    if args.precompile:
+        # run_service slices the stream into blocks // rounds blocks a
+        # round: precompile exactly that shape
+        sig = stages.signature_of(
+            cuts=cuts, block_size=args.block_size,
+            fused=not args.layered, lazy_l0=not args.no_lazy_l0,
+            chunk=args.chunk, use_kernel=args.use_kernel,
+            batch_mode=args.batch_mode, l0_mode=args.l0_mode)
+        stages.precompile_fleet(
+            sig, instances=args.instances,
+            blocks=args.blocks // args.rounds, queries=args.queries,
+            analytics_num_rows=kwargs["analytics_num_rows"],
+            analytics_k=args.top_k, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     rows, cols, vals = instance_streams(
@@ -85,6 +103,7 @@ def run_with_states(args):
         from repro_torch.obs import metrics as obs_metrics
         from repro_torch.obs import trace as obs_trace
         obs_trace.emit("fleet", **obs_metrics.fleet_sample(states))
+        obs_metrics.export_stages_gauges()
         obs_trace.emit("metrics", **obs_metrics.REGISTRY.snapshot())
     return stats, base_states, states
 
@@ -125,6 +144,12 @@ def parser() -> argparse.ArgumentParser:
                     "PyTorch versions on the CPU)")
     ap.add_argument("--batch-mode", dest="batch_mode",
                     choices=stages.BATCH_MODES, default=cfg.batch_mode)
+    ap.add_argument("--stages-cache", dest="stages_cache", default="",
+                    help="persistent compile-cache directory "
+                    "(repro.stages.set_cache_dir)")
+    ap.add_argument("--precompile", action="store_true",
+                    help="compile the whole dispatch set up front "
+                    "(stages.precompile_fleet) before serving")
     ap.add_argument("--obs", action="store_true",
                     help="emit obs.jsonl events; aggregate with python -m "
                     "repro.launch.monitor")

@@ -27,9 +27,15 @@ Families: ``lm`` (the five LM archs; ``--smoke`` trains with one
 microbatch, as the reference does; on the card each step runs under
 ``set_sync_debug_mode("error")``, so it makes the host wait for nothing),
 ``recsys`` (DCN-v2) and ``gnn``.  ``--compress`` only touches the ``lm``
-setup, as in the reference.  The step function is called directly (the
-reference wraps it in its ``stages`` compile front door, which the port
-does not have yet).
+setup, as in the reference.  Each family's step goes through the
+``stages`` front door under the reference's entry name and signature
+(``_step_sig``): ``train.lm_step`` is a ``"graph"`` entry — on the card
+its first step runs eagerly (a real step), its second is captured as a
+CUDA graph and replayed, and every later step replays (the params and
+moments are updated in place, so a replay copies only the batch and the
+step count into the graph's inputs); ``train.gnn_step`` and
+``train.recsys_step`` are eager (their steps read the host).  The run
+releases its graphs at its end.
 
 Every family's adapter exposes the same contract:
     state0, step(state, batch) -> (state, metrics), data(step) -> batch
@@ -37,14 +43,16 @@ Every family's adapter exposes the same contract:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
 import torch
 
-from repro_torch import generator, resolve_device
+from repro_torch import generator, resolve_device, stages
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.registry import family, get_config, get_smoke_config
+from repro_torch.launch.serve import no_host_sync
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime.straggler import StragglerEvicted, StragglerMonitor
 
@@ -59,9 +67,17 @@ def step_seed(seed: int, step: int) -> int:
     return ((int(seed) + 1) << 32) | int(step)
 
 
+def _step_sig(args, **extra) -> stages.Signature:
+    """Signature for a training-step program: every knob that changes the
+    step rides in ``extra`` (shapes ride in the argument keys), so
+    equal-config call sites share one cache entry — the reference's."""
+    base = dict(arch=args.arch, smoke=bool(args.smoke), lr=float(args.lr))
+    base.update(extra)
+    return stages.signature_of(extra=tuple(sorted(base.items())))
+
+
 def _lm_setup(cfg, args, device):
     from repro_torch.data.synthetic import token_batch
-    from repro_torch.launch.serve import no_host_sync
     from repro_torch.models import common
     from repro_torch.models import transformer as tf
     from repro_torch.optim.compression import (CompressionConfig, ef_init,
@@ -82,6 +98,7 @@ def _lm_setup(cfg, args, device):
                                        opt_cfg)
             return dict(params=p, opt=o, err=err), dict(m, gnorm=gnorm)
 
+        sig = _step_sig(args, compress=args.compress)
         state0 = dict(params=params, opt=adamw_init(params),
                       err=ef_init(params))
     else:
@@ -91,11 +108,10 @@ def _lm_setup(cfg, args, device):
             p, o, m = raw(state["params"], state["opt"], batch)
             return dict(params=p, opt=o), m
 
+        sig = _step_sig(args)
         state0 = dict(params=params, opt=adamw_init(params))
-
-    def step_fn(state, batch):
-        with no_host_sync(device):
-            return step_body(state, batch)
+    step_fn = stages.wrap(step_body, "train.lm_step", sig,
+                          static=(("cfg", cfg),), kind="graph")
 
     def data(step):
         return token_batch(step_seed(args.seed, step), args.batch, args.seq,
@@ -121,10 +137,12 @@ def _gnn_setup(cfg, args, device):
                                    device=device)
     raw = gnn.make_train_step(cfg, AdamWConfig(lr=args.lr), task)
 
-    def step_fn(state, batch):
+    def step_body(state, batch):
         p, o, m = raw(state["params"], state["opt"], batch)
         return dict(params=p, opt=o), m
 
+    step_fn = stages.wrap(step_body, "train.gnn_step", _step_sig(args),
+                          static=(("cfg", cfg),))
     return (dict(params=params, opt=adamw_init(params)), step_fn,
             lambda step: g)
 
@@ -139,21 +157,25 @@ def _recsys_setup(cfg, args, device):
         hstate = dcn.hier_embed_init(cfg, args.batch,
                                      cuts=(1024, 8192, 65536), device=device)
 
-        def step_fn(state, batch):
+        def step_body(state, batch):
             p, o, h, m = raw(state["params"], state["opt"], state["hier"],
                              batch)
             return dict(params=p, opt=o, hier=h), m
 
+        sig = _step_sig(args, hier_embed=True)
         state0 = dict(params=params, opt=adamw_init(dcn.rest_params(params)),
                       hier=hstate)
     else:
         raw = dcn.make_train_step(cfg, AdamWConfig(lr=args.lr))
 
-        def step_fn(state, batch):
+        def step_body(state, batch):
             p, o, m = raw(state["params"], state["opt"], batch)
             return dict(params=p, opt=o), m
 
+        sig = _step_sig(args)
         state0 = dict(params=params, opt=adamw_init(params))
+    step_fn = stages.wrap(step_body, "train.recsys_step", sig,
+                          static=(("cfg", cfg),))
 
     def data(step):
         return recsys_batch(step_seed(args.seed, step), args.batch,
@@ -177,6 +199,9 @@ def run_with_state(args):
         cfg = dataclasses.replace(cfg, num_microbatches=1)
     setup = dict(lm=_lm_setup, gnn=_gnn_setup, recsys=_recsys_setup)[fam]
     state, step_fn, data = setup(cfg, args, device)
+    # an LM step makes the host wait for nothing; the others read the host
+    guard = no_host_sync if fam == "lm" else (
+        lambda _: contextlib.nullcontext())
 
     start = 0
     ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3) if args.ckpt_dir else None
@@ -200,7 +225,8 @@ def run_with_state(args):
                 failures += 1
                 raise InjectedFailure(f"injected node failure @ step {step}")
             t0 = time.perf_counter()
-            state, m = step_fn(state, batch)
+            with guard(device):
+                state, m = step_fn(state, batch)
             losses.append(float(m["loss"]))          # waits for the step
             step_s.append(time.perf_counter() - t0)
             gnorms.append(float(m["gnorm"]))
@@ -225,6 +251,7 @@ def run_with_state(args):
     if ckpt:
         ckpt.save(step, state)
         ckpt.wait()
+    step_fn.release()
     wall = time.time() - t_start
     out = dict(losses=losses, steps=step, wall_s=wall,
                straggler_flags=monitor.flagged, failures=failures,

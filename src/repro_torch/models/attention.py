@@ -15,8 +15,10 @@ decode path that attends in the kv_lora latent space, caching only
 Decode writes the new token's keys in place into the caller's cache at
 ``cache_len``, clamped to the last slot as ``dynamic_update_slice_in_dim``
 clamps its start: a write at ``cache_len >= max_len`` lands at
-``max_len - 1``.  ``cache_len`` is a host int there, so the decode path
-makes the host wait for nothing.
+``max_len - 1``.  ``cache_len`` is a 0-d int32 device tensor there (a host
+int is accepted and filled on the device), as the reference's traced
+length is: the decode path makes the host wait for nothing, and a
+captured step reads the length its replay is given.
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 512,
 
 def _valid(cache_len, s: int, device):
     """[S] or [B, 1, 1, S] mask of the cache positions below
-    ``cache_len`` (a host int, or a [B] tensor)."""
+    ``cache_len`` (a host int, a 0-d tensor or a [B] tensor)."""
     pos = torch.arange(s, device=device)
     if isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1:
         return (pos[None, :] < cache_len[:, None])[:, None, None, :]
@@ -82,9 +84,9 @@ def _valid(cache_len, s: int, device):
 def decode_attention(q, k_cache, v_cache, cache_len):
     """Single-token attention against a (possibly partially filled) cache.
 
-    q [B, Hkv, G, Dk]; caches [B, Hkv, S, D*]; cache_len a host int or a
-    [B] tensor — the number of valid cache positions (the new token attends
-    to [0, cache_len)).
+    q [B, Hkv, G, Dk]; caches [B, Hkv, S, D*]; cache_len a host int, a
+    0-d or a [B] tensor — the number of valid cache positions (the new
+    token attends to [0, cache_len)).
     """
     dk = q.shape[-1]
     qf = q.float() / math.sqrt(dk)
@@ -96,12 +98,20 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     return out.to(q.dtype)
 
 
-def _write(cache: torch.Tensor, new: torch.Tensor, cache_len: int,
+def as_length(cache_len, device) -> torch.Tensor:
+    """``cache_len`` as a 0-d int32 tensor on ``device``: a tensor cast, a
+    host int filled on the device (a fill, not a copy from the host)."""
+    if isinstance(cache_len, torch.Tensor):
+        return cache_len.to(device=device, dtype=torch.int32)
+    return torch.full((), int(cache_len), dtype=torch.int32, device=device)
+
+
+def _write(cache: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor,
            dim: int) -> None:
     """``dynamic_update_slice_in_dim`` of one position along ``dim``, in
-    place: the start clamped into [0, size - 1]."""
-    at = min(max(int(cache_len), 0), cache.shape[dim] - 1)
-    cache.narrow(dim, at, 1).copy_(new)
+    place: the start (a 0-d device tensor) clamped into [0, size - 1]."""
+    at = torch.clamp(cache_len, 0, cache.shape[dim] - 1).reshape(1)
+    cache.index_copy_(dim, at.long(), new)
 
 
 # ------------------------------------------------------------------- GQA ----
@@ -140,13 +150,15 @@ def gqa_forward(p, x, *, n_heads: int, n_kv_heads: int, d_head: int,
     return out @ p["wo"], (k, v)
 
 
-def gqa_decode(p, x, cache, cache_len: int, *, n_heads: int,
+def gqa_decode(p, x, cache, cache_len, *, n_heads: int,
                n_kv_heads: int, d_head: int, rope_theta: float):
     """x [B, 1, D]; cache dict(k, v) [B, Hkv, S, Dh], written in place at
-    ``cache_len``.  Returns (out [B, 1, D], cache)."""
+    ``cache_len`` (a host int or a 0-d tensor).  Returns (out [B, 1, D],
+    cache)."""
     b = x.shape[0]
     g = n_heads // n_kv_heads
-    pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=x.device)
+    cache_len = as_length(cache_len, x.device)
+    pos = cache_len.expand(b, 1)
     q = (x @ p["wq"]).reshape(b, 1, n_kv_heads, g, d_head)
     k = (x @ p["wk"]).reshape(b, 1, n_kv_heads, d_head)
     v = (x @ p["wv"]).reshape(b, 1, n_kv_heads, d_head)
@@ -229,17 +241,18 @@ def mla_forward(p, x, cfg: MLAConfig, positions, causal: bool = True,
     return out @ p["wo"], (c_kv, k_rope[:, 0])
 
 
-def mla_decode(p, x, cache, cache_len: int, cfg: MLAConfig):
+def mla_decode(p, x, cache, cache_len, cfg: MLAConfig):
     """Absorbed decode: attend in the kv_lora latent space.
 
     cache = dict(c_kv [B, S, R], k_rope [B, S, dr]), written in place at
-    ``cache_len``.  Per-token cache cost is R + dr values (DeepSeek-V2's
-    576 vs GQA's 2*Hkv*Dh).
+    ``cache_len`` (a host int or a 0-d tensor).  Per-token cache cost is
+    R + dr values (DeepSeek-V2's 576 vs GQA's 2*Hkv*Dh).
     """
     b = x.shape[0]
     h, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                         cfg.v_head_dim, cfg.kv_lora_rank)
-    pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=x.device)
+    cache_len = as_length(cache_len, x.device)
+    pos = cache_len.expand(b, 1)
     q_nope, q_rope = _mla_q(p, x, cfg)                     # [B,1,H,*]
     q_rope = apply_rope(q_rope.permute(0, 2, 1, 3), pos[:, None],
                         cfg.rope_theta)[:, :, 0]           # [B,H,dr]

@@ -9,8 +9,8 @@ parameter).  ``tree_from_numpy`` / ``tree_to_numpy`` carry parameters
 between the two packages as numpy arrays.
 
 ``cross_entropy`` is the LM loss (float32 log-sum-exp minus the gold
-logit, plus an optional z-loss); ``count_params`` counts a tree's
-elements.
+logit, 0 for a label outside the vocabulary, plus an optional z-loss);
+``count_params`` counts a tree's elements.
 
 Training walks a tree — a ``ParamTree``, or nested dicts and lists of
 tensors such as the optimizer's moments — in the JAX package's leaf order
@@ -83,10 +83,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
     """Mean over every position of ``logsumexp(logits) - logits[label]``
-    (plus ``z_loss * logsumexp**2``), computed in float32."""
+    (plus ``z_loss * logsumexp**2``), computed in float32.  A label outside
+    ``[0, V)`` (``-1`` padding, say) has gold logit 0, as the reference's
+    iota-mask sum gives: the gather reads a clamped index and a ``where``
+    zeroes it, value and gradient."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    v = logits.shape[-1]
+    idx = labels[..., None].long()
+    inside = (idx >= 0) & (idx < v)
+    gold = torch.where(inside, torch.gather(logits, -1, idx.clamp(0, v - 1)),
+                       0.0)[..., 0]
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

@@ -24,7 +24,8 @@ place.  The step makes the host wait for nothing.
 The KV cache is a dict of stacked ``[L, B, ..., max_len, D]`` tensors
 (``k``/``v``, or ``c_kv``/``k_rope`` for MLA); ``decode_step`` writes the
 new token into it in place, layer by layer, where the reference carries
-it through its layer scan.  ``cache_len`` is a host int.
+it through its layer scan.  ``cache_len`` is a 0-d int32 device tensor
+(a host int is filled on the device).
 """
 from __future__ import annotations
 
@@ -281,14 +282,17 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
                 v=torch.zeros(shape, dtype=dt, device=dev))
 
 
-def decode_step(params, token: torch.Tensor, cache: dict, cache_len: int,
+def decode_step(params, token: torch.Tensor, cache: dict, cache_len,
                 cfg: LMConfig) -> Tuple[torch.Tensor, dict]:
     """One serving step: token [B, 1] + cache -> (logits [B, V], cache).
 
-    ``cache_len`` (a host int) is the number of valid positions already in
-    the cache; the new token is written at that offset (clamped to the
-    last slot), in place.  The returned cache is the one passed in.
+    ``cache_len`` (a 0-d int32 device tensor, or a host int filled on the
+    device) is the number of valid positions already in the cache; the new
+    token is written at that offset (clamped to the last slot), in place.
+    The returned cache is the one passed in.  The step reads nothing on
+    the host, so it can be captured (``launch/serve.py``).
     """
+    cache_len = attn_mod.as_length(cache_len, token.device)
     x = _embed(params, token)
     for i, lp in enumerate(_layers(params)):
         cache_l = {k: v[i] for k, v in cache.items()}

@@ -16,13 +16,14 @@ latency reporting and ``obs.slo``.
 
 The device side is ``fleet_sample(states)`` → ``hier.metrics_snapshot``:
 the whole ``[I, ...]`` fleet reduced on the device, the host transfer
-here, at the sampling boundary.
+here, at the sampling boundary.  ``export_stages_gauges`` mirrors the
+``stages`` front door's counters into gauges.
 """
 from __future__ import annotations
 
 import math
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 # Fixed bucket geometry — part of the on-disk schema (obs.jsonl carries
 # it per histogram payload); changing these constants is a schema bump.
@@ -198,6 +199,23 @@ class Registry:
 
 
 REGISTRY = Registry()
+
+
+def export_stages_gauges(registry: Optional[Registry] = None) -> dict:
+    """Mirror ``stages.stats()`` — including the per-entry dispatch counts
+    and cumulative dispatch wall — into obs gauges
+    (``stages.<counter>`` / ``stages.entry.<name>.{dispatches,wall_s}``).
+    Returns the stats dict it exported."""
+    from repro_torch import stages
+    reg = registry or REGISTRY
+    s = stages.stats()
+    for k, v in s.items():
+        if isinstance(v, (int, float)):
+            reg.gauge(f"stages.{k}", v)
+    for entry, es in s.get("per_entry", {}).items():
+        reg.gauge(f"stages.entry.{entry}.dispatches", es["dispatches"])
+        reg.gauge(f"stages.entry.{entry}.wall_s", es["wall_s"])
+    return s
 
 
 def fleet_sample(states) -> dict:

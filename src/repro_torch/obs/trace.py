@@ -16,9 +16,14 @@ it).
   record carries a per-process ``run`` id, a monotonic ``seq``, a
   wall-clock ``t`` and ``pid``.
 
-The reference's per-dispatch spans (its ``stages`` front door hook and
-profiler annotations) are not carried: the port has no compile front
-door yet.
+- **Dispatch spans.**  Every call through the ``stages`` front door is a
+  *dispatch*: ``enable`` installs ``_on_dispatch`` as its hook, and each
+  becomes one ``dispatch`` record (entry, signature digest, wall time,
+  compile seconds, cache provenance — the reference's fields — and the
+  port's ``kind``: ``eager`` or ``graph``).  ``enable(annotate=True)``
+  (or ``REPRO_OBS_ANNOTATE=1``) nests each dispatch in a
+  ``torch.profiler.record_function(entry)`` so spans line up with device
+  traces.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Optional
 
 ENV = "REPRO_OBS"
 ENV_DIR = "REPRO_OBS_DIR"
+ENV_ANNOTATE = "REPRO_OBS_ANNOTATE"
 DEFAULT_DIR = "obs"
 FILENAME = "obs.jsonl"
 # every record must carry these — the monitor's schema check
@@ -59,9 +65,12 @@ def out_path() -> Optional[str]:
     return _STATE["path"]
 
 
-def enable(obs_dir: Optional[str] = None) -> str:
+def enable(obs_dir: Optional[str] = None, *,
+           annotate: Optional[bool] = None) -> str:
     """Open ``<obs_dir>/obs.jsonl`` (default ``REPRO_OBS_DIR`` or
-    ``obs``) for appending.  Idempotent; returns the JSONL path."""
+    ``obs``) for appending and install the stages dispatch hook.
+    Idempotent; returns the JSONL path."""
+    from repro_torch import stages
     with _LOCK:
         if _STATE["enabled"]:
             return _STATE["path"]
@@ -71,13 +80,21 @@ def enable(obs_dir: Optional[str] = None) -> str:
         fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
         _STATE.update(enabled=True, fd=fd, path=path,
                       run=uuid.uuid4().hex[:12], seq=0)
+    if annotate is None:
+        annotate = env_enabled(os.environ.get(ENV_ANNOTATE))
+    ann = None
+    if annotate:
+        from torch.profiler import record_function as ann
+    stages.set_trace_hook(_on_dispatch, annotation=ann)
     emit("obs_start", argv=list(sys.argv))
     return path
 
 
 def disable() -> None:
-    """Close the stream (flushes nothing — every record was already
-    written atomically)."""
+    """Uninstall the hook and close the stream (flushes nothing — every
+    record was already written atomically)."""
+    from repro_torch import stages
+    stages.set_trace_hook(None)
     with _LOCK:
         fd = _STATE["fd"]
         _STATE.update(enabled=False, fd=None, path=None, run=None, seq=0)
@@ -102,3 +119,10 @@ def emit(ev: str, **fields) -> bool:
         except (OSError, TypeError, ValueError):
             return False
     return True
+
+
+def _on_dispatch(*, entry: str, digest: str, wall_s: float,
+                 compile_s: float, provenance: str, kind: str) -> None:
+    """The hook ``stages.Wrapped.__call__`` fires per dispatch."""
+    emit("dispatch", entry=entry, sig=digest, wall_s=round(wall_s, 9),
+         compile_s=round(compile_s, 6), prov=provenance, kind=kind)

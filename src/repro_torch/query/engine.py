@@ -24,6 +24,9 @@ read every instance at once; only the canon-mode canonicalization of
 layer 0 runs once per instance (the merge wrapper takes one block).
 
 State is never mutated — queries interleave freely with ingest steps.
+``point_lookup``, ``extract_rows`` and ``range_total`` dispatch through
+``stages`` under the reference's entry names (eager; the service's
+instance-batched point query, ``query/service.py``, is the captured one).
 """
 from __future__ import annotations
 
@@ -196,11 +199,34 @@ def point_lookup(h, rows, cols, sr: Semiring = sr_mod.PLUS_TIMES,
     """
     sig = stages.signature_for_state(h, sr=sr, use_kernel=use_kernel,
                                      l0_mode=l0_mode)
+    rows, cols = _queries(h, rows, cols)
+    return point_lookup_wrapped(contracts.front_door_signature(sig))(
+        h, rows, cols)
+
+
+def _checked_query(run, sr: Semiring, name: str):
+    """The checked build of a query program: the input hierarchy checked
+    (layer 0 on the raw-buffer contract only — the engine never trusts its
+    order) and every canonicalization inside deep-checked."""
+    def checked(h, *args):
+        return contracts.checked(f"query.engine.{name}", h, sr,
+                                 lambda: run(h, *args), l0_sorted=False)
+    return checked
+
+
+def point_lookup_wrapped(sig: stages.Signature) -> stages.Wrapped:
+    """Keyed Q-vector point-query program for one config signature
+    (eager).  A signature carrying ``contracts.DEBUG_EXTRA`` keys the
+    checked build."""
     sr = sr_mod.get(sig.sr)
-    return contracts.checked(
-        "query.engine.point_lookup", h, sr,
-        lambda: _point_lookup(h, rows, cols, sr, use_kernel, sig.l0_mode),
-        l0_sorted=False)
+
+    def run(h, rows, cols):
+        return _point_lookup(h, rows, cols, sr, sig.use_kernel, sig.l0_mode)
+
+    if contracts.sig_debug(sig):
+        return stages.wrap(_checked_query(run, sr, "point_lookup"),
+                           "query.engine.point_lookup", sig)
+    return stages.wrap(run, "query.engine.point_lookup", sig)
 
 
 def _point_lookup(h, rows, cols, sr: Semiring, use_kernel: bool,
@@ -268,11 +294,35 @@ def extract_rows(h, rows, num_cols: int, *,
     Returns ``(dense [Q, num_cols], truncated int32[Q])``, with a leading
     instance axis for a batch.
     """
-    sig = stages.signature_for_state(h, sr=sr, use_kernel=use_kernel,
-                                     l0_mode=l0_mode)
+    sig = stages.signature_for_state(
+        h, sr=sr, use_kernel=use_kernel, l0_mode=l0_mode,
+        extra=(("num_cols", int(num_cols)),
+               ("width", None if width is None else int(width))))
+    rows = _queries(h, rows)[0]
+    return extract_rows_wrapped(contracts.front_door_signature(sig))(h, rows)
+
+
+def extract_rows_wrapped(sig: stages.Signature) -> stages.Wrapped:
+    """Keyed dense-row-extraction program for one config signature
+    (``num_cols``/``width`` ride in ``sig.extra``; eager)."""
     sr = sr_mod.get(sig.sr)
+    statics = dict(sig.extra)
+
+    def run(h, rows):
+        return _extract_rows(h, rows, statics["num_cols"], sr,
+                             statics["width"], sig.use_kernel,
+                             sig.l0_mode)
+
+    if contracts.sig_debug(sig):
+        return stages.wrap(_checked_query(run, sr, "extract_rows"),
+                           "query.engine.extract_rows", sig)
+    return stages.wrap(run, "query.engine.extract_rows", sig)
+
+
+def _extract_rows(h, rows, num_cols: int, sr: Semiring, width,
+                  use_kernel: bool, l0_mode) -> Tuple[Tensor, Tensor]:
     lead = _lead(h)
-    rows = _per_instance(_queries(h, rows)[0], lead)
+    rows = _per_instance(rows, lead)
     q = rows.shape[-1]
     dev = h.device
     # flat index of each query row's first column in the [..., Q, num_cols]
@@ -291,7 +341,7 @@ def extract_rows(h, rows, num_cols: int, *,
         ids.append(torch.where(in_view, base + cc, -1).reshape(-1))
         vals.append(vv.reshape(-1))
 
-    runs, raw = _l0_runs(h, q, sr, use_kernel, sig.l0_mode or "auto")
+    runs, raw = _l0_runs(h, q, sr, use_kernel, l0_mode or "auto")
     for seg in runs:
         C = seg.capacity
         w = min(C, num_cols) if width is None else min(width, C)
@@ -327,15 +377,35 @@ def range_total(h, row_lo, row_hi, sr: Semiring = sr_mod.PLUS_TIMES,
     """
     sig = stages.signature_for_state(h, sr=sr, use_kernel=use_kernel,
                                      l0_mode=l0_mode)
+    row_lo, row_hi = _queries(h, row_lo, row_hi)
+    return range_total_wrapped(contracts.front_door_signature(sig))(
+        h, row_lo, row_hi)
+
+
+def range_total_wrapped(sig: stages.Signature) -> stages.Wrapped:
+    """Keyed row-range reduction program for one config signature
+    (eager)."""
     sr = sr_mod.get(sig.sr)
+
+    def run(h, row_lo, row_hi):
+        return _range_total(h, row_lo, row_hi, sr, sig.use_kernel,
+                            sig.l0_mode)
+
+    if contracts.sig_debug(sig):
+        return stages.wrap(_checked_query(run, sr, "range_total"),
+                           "query.engine.range_total", sig)
+    return stages.wrap(run, "query.engine.range_total", sig)
+
+
+def _range_total(h, row_lo, row_hi, sr: Semiring, use_kernel: bool,
+                 l0_mode) -> Tensor:
     lead = _lead(h)
-    row_lo, row_hi = (_per_instance(x, lead)
-                      for x in _queries(h, row_lo, row_hi))
+    row_lo, row_hi = _per_instance(row_lo, lead), _per_instance(row_hi, lead)
     vdtype = h.layers[0].dtype
     zero = sr_mod.integer_zero(sr, vdtype)
     out = torch.full(row_lo.shape, zero, dtype=vdtype, device=h.device)
     runs, raw = _l0_runs(h, row_lo.shape[-1], sr, use_kernel,
-                         sig.l0_mode or "auto")
+                         l0_mode or "auto")
 
     def masked(seg, gate):
         hi = seg.hi.unsqueeze(-2)

@@ -13,6 +13,14 @@ only coupling between the two paths is the device itself.
 Every round and batch is timed on the host clock and ended by
 ``torch.cuda.synchronize()`` when the fleet is on the card.
 ``launch/query.py`` is its command line.
+
+The three steps are ``stages`` entries under the reference's names:
+``service.ingest`` (``stream.ingest_instances``' program without
+telemetry) and ``service.analytics`` dispatch eagerly; on the card
+``service.point_query`` is a captured CUDA graph (its ``merge_multi``
+launches replay with it).  The warm-up before the timed rounds dispatches
+each until it is steady — for the point query, its eager warm-up and its
+capture — so the timed batches are replays.
 """
 from __future__ import annotations
 
@@ -41,42 +49,43 @@ def make_ingest_fn(sr: Semiring = sr_mod.PLUS_TIMES, *,
                    use_kernel: bool = False, lazy_l0: bool = False,
                    fused: bool = True, chunk: int = 1,
                    batch_mode: str = "grouped"):
-    """(states, [I, T, B] stream) -> states round step, with the per-step
-    telemetry dropped.  Returns a new state (the argument is not
-    modified)."""
+    """Staged (states, [I, T, B] stream) -> states round step, the
+    per-step telemetry dropped: ``stream.ingest_instances_jit``'s program,
+    so the service shares its cache entry with every other ingest entry
+    point.  Returns a new state (the argument is not modified)."""
     sig = stages.signature_of(sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0,
                               fused=fused, chunk=chunk,
                               batch_mode=batch_mode)
-
-    def run(states, rows, cols, vals):
-        return stream.ingest_instances(
-            states, rows, cols, vals, sr=sig.sr, use_kernel=sig.use_kernel,
-            lazy_l0=sig.lazy_l0, fused=sig.fused, chunk=sig.chunk,
-            batch_mode=sig.batch_mode, with_telemetry=False)[0]
-    return run
+    return stream.ingest_instances_jit(sig, with_telemetry=False,
+                                       donate=True)
 
 
 def make_point_query_fn(sr: Semiring = sr_mod.PLUS_TIMES, *,
                         use_kernel: bool = False, l0_mode: str = "auto"):
-    """(states, q_rows [Q], q_cols [Q]) -> values [I, Q]: one engine call
-    answers the whole query vector for every local instance."""
+    """Staged (states, q_rows [Q], q_cols [Q]) -> values [I, Q]: one
+    engine program answers the whole query vector for every local
+    instance.  A ``"graph"`` entry: captured on the card, where its result
+    stays valid until the next dispatch of the same shapes (the engine's
+    body, unchecked, as the reference's vmapped lookup is)."""
     sig = stages.signature_of(sr=sr, use_kernel=use_kernel, l0_mode=l0_mode)
+    sr = sr_mod.get(sig.sr)
 
     def run(states, q_rows, q_cols):
-        return engine.point_lookup(states, q_rows, q_cols, sr=sig.sr,
-                                   use_kernel=sig.use_kernel,
-                                   l0_mode=sig.l0_mode)
-    return run
+        return engine._point_lookup(states, q_rows, q_cols, sr,
+                                    sig.use_kernel, sig.l0_mode)
+    return stages.wrap(run, "service.point_query", sig, kind="graph")
 
 
 def make_analytics_fn(num_rows: int, k: int,
                       sr: Semiring = sr_mod.PLUS_TIMES):
-    """states -> (top-k totals [I, k], top-k row ids [I, k])."""
-    sr = sr_mod.get(stages.signature_of(sr=sr).sr)
+    """Staged states -> (top-k totals [I, k], top-k row ids [I, k])."""
+    sig = stages.signature_of(sr=sr, extra=(("num_rows", int(num_rows)),
+                                            ("k", int(k))))
+    sr = sr_mod.get(sig.sr)
 
     def run(states):
         return analytics.top_k_rows(states, int(num_rows), int(k), sr=sr)
-    return run
+    return stages.wrap(run, "service.analytics", sig)
 
 
 def run_service(states, rows: Tensor, cols: Tensor, vals: Tensor,
@@ -129,12 +138,13 @@ def run_service(states, rows: Tensor, cols: Tensor, vals: Tensor,
                 if analytics_num_rows else None)
 
     # warm-up outside the timed region (the service's steady state is what
-    # the rates describe, not the first calls)
+    # the rates describe, not the first calls): each step dispatched until
+    # it is steady, so the point query's capture is not timed
     states = ingest(states, rows[:, :per], cols[:, :per], vals[:, :per])
     if with_queries:
-        query(states, q_rows, q_cols)
+        query.steady(states, q_rows, q_cols)
         if analytic is not None:
-            analytic(states)
+            analytic.steady(states)
     _sync(device)
 
     ingest_wall = 0.0
@@ -165,6 +175,7 @@ def run_service(states, rows: Tensor, cols: Tensor, vals: Tensor,
                 analytic(states)
                 _sync(device)
                 analytics_wall += time.perf_counter() - t0
+    query.release()
     timed_rounds = rounds - 1
     n_updates = I * timed_rounds * per * B
     hist = tracker.hist

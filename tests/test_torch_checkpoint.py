@@ -295,17 +295,16 @@ def _reference_defaults(monkeypatch) -> dict:
 def test_ingest_flags_match_reference(monkeypatch):
     """The port's ingest CLI has the reference's flags with its defaults,
     ``--ckpt-dir``/``--ckpt-every``/``--resume``/``--obs``/``--obs-dir``
-    among them, plus ``--device`` (default cuda);
-    ``--precompile``/``--stages-cache`` wait for the port's compile front
-    door."""
+    and ``--precompile``/``--stages-cache`` among them, plus ``--device``
+    (default cuda)."""
     want = _reference_defaults(monkeypatch)
     got = vars(tingest.parser().parse_args([]))
     assert got.pop("device") == "cuda"
-    for k in ("precompile", "stages_cache"):
-        want.pop(k)
     assert got == want
-    for k in ("ckpt_dir", "ckpt_every", "resume", "obs", "obs_dir"):
+    for k in ("ckpt_dir", "ckpt_every", "resume", "obs", "obs_dir",
+              "precompile", "stages_cache"):
         assert k in got, k
+    assert got["precompile"] is False and got["stages_cache"] == ""
 
 
 def _cli(tmp_path, *extra):

@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s model phases (7: DCN-v2 serving, 8: GNN inference,
-13: LM serving), phase 9 (the read-while-ingest service) and phase 3's
+13: LM serving), phase 9 (the read-while-ingest service), phase 15 (the
+``stages`` front door, every entry eager here) and phase 3's
 segment_sum checks rehearsed on the CPU at small sizes: the
 same calls and checks as on the card, with the kernel wrappers running
 their plain versions (so no launch is counted).  The DCN-v2 kernel route
@@ -252,3 +253,35 @@ def test_train_lm_phase_on_cpu(tmp_path):
         "smollm-360m int8", "smollm-360m plain"]
     assert all(r["resumed_rel_err"] <= 1e-5 for r in res["resume"].values())
     assert not any(res["launches"].values())
+
+
+def test_stages_phase_on_cpu(tmp_path):
+    """Phase 15 at smoke size, where every entry is eager: (a)
+    ``precompile_fleet`` then the ingest and query CLIs with 0 lowerings
+    and 0 compiles and one ``dispatch`` record per dispatch; (b) the canon
+    batch's two arms equal; (c) granite's smoke decode, tokens equal and
+    logits bit-equal; (d) granite's smoke training, losses within rtol
+    1e-5 under deterministic algorithms and equal without (every arm is
+    eager here), and the five smoke configs bit for bit."""
+    res = chip_smoke.stages_phase(torch, "cpu", "the CPU, no card line",
+                                  str(tmp_path), smoke=True)
+    a = res["front_door"]
+    assert a["after_precompile"]["compiles"] == 0
+    assert a["after_precompile"]["lowerings"] == 0
+    assert a["dispatch_records"] == a["after_precompile"]["dispatches"] > 0
+    assert set(a["precompile"].values()) == {"compiled"}
+    assert a["kinds"] == {"eager": a["dispatch_records"]}
+    b = res["canon_batch"]
+    assert b["merge_multi_per_replay"] == 0 and len(b["graph_ms"]) == 7
+    assert b["copied_bytes_same_fleet"] == b["copied_bytes_fresh_fleet"] == 0
+    c = res["decode"]
+    assert c["logits_max_abs_err"] == 0.0 and c["replays"] == 0
+    assert len(c["graph_ms_per_step"]) == chip_smoke.STAGES_RUNS
+    d = res["train"]
+    assert d["graph_det"]["losses_max_rel_err"] <= 1e-5
+    assert d["graph"]["losses_max_rel_err"] == 0.0        # eager here
+    assert len(d["eager"]["losses"]) == chip_smoke.TRAIN_AB_STEPS
+    assert sorted(res["train_smoke_bits"]) == list(chip_smoke.LM_ARCHS)
+    assert all(r["bit_equal"] for r in res["train_smoke_bits"].values())
+    assert "capture_refused" not in res                   # the card only
+    assert res["stats"]["captures"] == 0

@@ -185,3 +185,23 @@ def test_recsys_batch_formulas():
     assert all(torch.equal(b[k], again[k]) for k in b)
     r = synthetic.retrieval_batch(1, 2, 50, 16, device="cpu")
     assert r["query"].shape == (2, 16) and r["candidates"].shape == (50, 16)
+
+
+def test_recsys_stream_matches_reference_shape():
+    """``recsys_stream``: as many batches as the reference's, with its keys,
+    shapes and dtypes, step i equal to ``recsys_batch`` of the seed
+    ``(seed << 32) | i`` (the port's fold-in), and the steps differ."""
+    from repro.data import synthetic as jsyn
+    kw = dict(n_dense=5, n_sparse=3, vocab_per_field=100, multi_hot=2)
+    want = list(jsyn.recsys_stream(jax.random.PRNGKey(4), 3, 8, **kw))
+    got = list(synthetic.recsys_stream(4, 3, 8, device="cpu", **kw))
+    assert len(got) == len(want) == 3
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert tuple(g[k].shape) == tuple(w[k].shape), k
+            assert str(g[k].dtype).removeprefix("torch.") == \
+                np.asarray(w[k]).dtype.name, k
+        one = synthetic.recsys_batch((4 << 32) | i, 8, device="cpu", **kw)
+        assert all(torch.equal(g[k], one[k]) for k in g)
+    assert not torch.equal(got[0]["dense"], got[1]["dense"])

@@ -155,3 +155,23 @@ def test_invalid_config_messages_match():
         thier.update(h, r, r, torch.ones(BLOCK), batch_mode="grouped")
     with pytest.raises(ValueError, match="strictly increasing"):
         thier.create((64, 64), BLOCK, device="cpu")
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_lookup_layered_and_nnz_bound_match(lazy):
+    """``lookup_layered`` (the engine's oracle: per-layer scans, layer 0 on
+    the raw-buffer contract) and ``total_nnz_upper_bound`` against the
+    reference's, on keys present and absent, a lazy layer 0 included."""
+    rows, cols, _, _ = _stream(False)
+    for jh in _jax_run("switch", lazy, False)[3::4]:
+        th = tp.to_torch(jh)
+        want = jhier.total_nnz_upper_bound(jh)
+        got = thier.total_nnz_upper_bound(th)
+        assert got.dtype == torch.int32
+        assert int(got) == int(want)
+        keys = list(zip(rows[0][:6], cols[0][:6])) + [(299, 299), (-5, 7)]
+        for r, c in keys:
+            w = np.asarray(jhier.lookup_layered(jh, jnp.int32(r),
+                                                jnp.int32(c)))
+            g = thier.lookup_layered(th, int(r), int(c))
+            np.testing.assert_allclose(g.numpy(), w, rtol=tp.RTOL)

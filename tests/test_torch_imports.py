@@ -311,3 +311,40 @@ def test_lm_training_modules_import_no_jax_and_default_to_cuda(monkeypatch):
             assert args.device == "cuda"
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 train.run(args)
+
+
+def test_stages_front_door_imports_no_jax(monkeypatch):
+    """The ``stages`` front door and what hangs from it (the kernel build
+    directory, the dispatch spans and gauges, the wrapped entries of the
+    core, query and launch modules) import neither JAX nor anything of the
+    JAX package (each file, and in a fresh process that also builds a
+    fleet's job list); a captured entry's launchers default to cuda and
+    raise without it."""
+    for name in ("stages.py", "kernels/build.py", "kernels/registry.py",
+                 "obs/trace.py", "obs/metrics.py", "analysis/contracts.py",
+                 "core/hier.py", "core/stream.py", "query/engine.py",
+                 "query/service.py", "launch/ingest.py", "launch/query.py",
+                 "launch/serve.py", "launch/train.py"):
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "from repro_torch import stages\n"
+            "from repro_torch.configs import d4m_stream\n"
+            "jobs = stages.fleet_jobs(d4m_stream.smoke_config(), "
+            "device='cpu')\n"
+            "assert jobs and stages.kernel_jobs()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch import stages
+    from repro_torch.configs import d4m_stream
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stages.fleet_jobs(d4m_stream.smoke_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run(serve.make_args(arch="smollm-360m", smoke=True))

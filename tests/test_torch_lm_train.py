@@ -120,6 +120,27 @@ def test_cross_entropy(dtype, z_loss):
            else dict(rtol=1e-2, atol=1e-4))
 
 
+@pytest.mark.parametrize("z_loss", [0.0, 1e-2])
+def test_cross_entropy_labels_outside_the_vocab(z_loss):
+    """A label of ``V`` or ``-1`` matches no logit in the reference's
+    iota-mask sum, so its gold logit is 0 and its loss the log-sum-exp:
+    value and gradient rtol 1e-5; and the figure of seed 0's [2, 3, 11]
+    logits."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 3, 11)).astype(np.float32)
+    labels = np.array([[0, 5, 11], [1, -1, 3]], np.int32)
+    want, jgrad = jax.value_and_grad(
+        lambda v: jcommon.cross_entropy(v, labels, z_loss))(jnp.asarray(x))
+    t = torch.from_numpy(x.copy()).requires_grad_()
+    got = common.cross_entropy(t, torch.from_numpy(labels), z_loss)
+    _close(got, want, LOSS)
+    got.backward()
+    _close(t.grad, jgrad, dict(rtol=1e-5, atol=1e-7))
+    if not z_loss:
+        assert float(got.detach()) == pytest.approx(3.0315053462982178,
+                                                    rel=1e-6)
+
+
 def test_count_params():
     for arch in LM_ARCHS:
         cfg, _, jp, tp = _models(arch)

@@ -356,15 +356,14 @@ def _reference_defaults(monkeypatch) -> dict:
 
 
 def test_launch_query_flags_match_reference(monkeypatch):
-    """The same flags and defaults as ``repro.launch.query``, plus
-    ``--device`` (default cuda); ``--precompile``/``--stages-cache`` wait
-    for the port's compile front door."""
+    """The same flags and defaults as ``repro.launch.query``,
+    ``--precompile``/``--stages-cache`` among them, plus ``--device``
+    (default cuda)."""
     want = _reference_defaults(monkeypatch)
     got = vars(tquery.parser().parse_args([]))
     assert got.pop("device") == "cuda"
-    for k in ("precompile", "stages_cache"):
-        want.pop(k)
     assert got == want
+    assert got["precompile"] is False and got["stages_cache"] == ""
 
 
 def test_launch_query_run_on_cpu():
