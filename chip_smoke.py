@@ -217,10 +217,32 @@ which the node-tiled kernel read.
    ``set_sync_debug_mode("error")``.  Ms, tok/s, kernels a step, busy
    share and peak GiB per arm; the timings leave out the warm-up and
    capture dispatches.
+16. the analysis layer (``analysis_phase``): (a) ``python -m
+   repro_torch.analysis.palkit --check`` in a process of its
+   own — the registry's jobs and the four kernels at phase 3's main-path
+   shapes built, launched, held against their plain versions (K005), their
+   launch configurations (from the C side) and resources checked (K001,
+   K002) against ``analysis/SMEM_BUDGETS.json``; 0 fresh violations;
+   (b) in it, the four compute-sanitizer tools (memcheck, initcheck,
+   synccheck, racecheck) over those jobs, and where a tool cannot run on
+   the machine the checked build (``-DREPRO_KERNEL_CHECKS``: bounds, two
+   poisons, warp / barrier / bulk-copy checks; it has no race detector,
+   so racecheck's class is then reported as not covered) — each tool's
+   error count per kernel printed; (c) ``tracekit.audit_fleet`` at
+   ``d4m_stream.config()`` with the kernel route, on the card: 0 fresh
+   violations and no host read in ``service.point_query``, each entry's
+   ``flops`` / ``bytes_accessed`` / ``peak_bytes`` beside its CPU budget
+   at the smoke config, its host reads and launches a call; (d) each
+   kernel's row of the kernels line gains ``regs``, ``smem_static``,
+   ``smem_dynamic``, ``spill_bytes`` and ``sanitizer`` (one error count
+   per tool, and what counted it; null, with the reason, for a tool whose
+   class nothing checked).  Rehearse with
+   ``tests/test_torch_chip_smoke.py::test_analysis_phase_on_cpu``.
 
-It prints phase 13's, 14's and 15's numbers as one JSON line each
-(``{"serve": ...}``, ``{"train_lm": ...}``, ``{"stages": ...}``), the
-card line, one JSON line with every kernel's numbers (the
+It prints phase 13's, 14's, 15's and 16's numbers as one JSON line each
+(``{"serve": ...}``, ``{"train_lm": ...}``, ``{"stages": ...}``,
+``{"analysis": ...}``), the card line, one JSON line with every kernel's
+numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
 the kernel took powers of two only; both merge rows carry their float16
@@ -3366,6 +3388,151 @@ def stages_phase(torch, device, card: str, tmp: str, *,
     return res
 
 
+# ------------------------------------------------------------- phase 16 --
+
+# the kernels line's rows and the main-path job of each (palkit)
+ANALYSIS_JOBS = {
+    "hier_merge.merge_multi": "hier_merge.merge_multi_cuda/main.3072+16384",
+    "hier_merge.merge": "hier_merge.merge_cuda/main.19456+13312",
+    "embedding_bag.embedding_bag":
+        "embedding_bag.embedding_bag_cuda/main.serve_bulk",
+    "segment_agg.segment_sum":
+        "segment_agg.segment_sum_cuda/main.graphcast_r6",
+}
+
+
+def palkit_check(tmp: str) -> dict:
+    """(a) + (b): ``python -m repro_torch.analysis.palkit --check`` in a
+    process of its own: every registry job and the
+    kernels at the main path's shapes built, launched, held against their
+    plain versions and their SMEM_BUDGETS.json rows, and run under each
+    compute-sanitizer tool (or, where a tool cannot run on the machine,
+    the checked build).  Without a card it must exit 2.  Returns its JSON
+    report (None on the CPU)."""
+    import torch
+    path = os.path.join(tmp, "palkit.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis.palkit",
+                          "--check", "--json", path],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=900)
+    if not torch.cuda.is_available():
+        if out.returncode != 2 or "no CUDA device" not in out.stderr:
+            raise AssertionError(f"palkit without a card: rc "
+                                 f"{out.returncode}, {out.stderr[-500:]}")
+        return None
+    print("\n".join(l for l in out.stdout.splitlines()
+                    if not l.startswith(" ")), flush=True)
+    if out.returncode != 0:
+        raise AssertionError(f"palkit --check failed: rc {out.returncode}\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def kernel_checks(report: dict, job: str) -> dict:
+    """(d): a kernels-line row's resources (the largest over its main-path
+    job's launches) and one error count per sanitizer tool: the tool's own
+    where it ran, else the checked build's count for the tool's class;
+    None, with the reason under ``not_covered``, where the checked build
+    has no check of that class (racecheck's shared-memory races)."""
+    from repro_torch.analysis import palkit
+    j = report["jobs"][job]
+    ls = j["launches"]
+    san = report["sanitizer"]
+    counts, by, why, uncovered = {}, {}, set(), {}
+    for tool, c in palkit.STANDS_IN.items():
+        if j["tools"].get(tool) is not None:
+            counts[tool], by[tool] = j["tools"][tool], "compute-sanitizer"
+            continue
+        why.add(san[tool]["message"])
+        if c is None:
+            counts[tool] = None
+            uncovered[tool] = (f"compute-sanitizer {tool} did not run; "
+                               f"{palkit.RACE_NOT_COVERED}")
+        else:
+            counts[tool], by[tool] = j["checked"][c], f"checked build ({c})"
+    if len({v.split(" (")[0] for v in by.values()}) == 1:
+        by = next(iter(by.values())).split(" (")[0]
+    return dict(regs=max(l["regs"] for l in ls),
+                smem_static=max(l["smem_static"] for l in ls),
+                smem_dynamic=max(l["smem_dynamic"] for l in ls),
+                spill_bytes=max(l["spill_bytes"] for l in ls),
+                sanitizer=dict(counts, counted_by=by,
+                               not_covered=uncovered,
+                               compute_sanitizer="; ".join(sorted(why))
+                               or "ran"))
+
+
+def tracekit_check(torch, device, *, smoke: bool = False) -> dict:
+    """(c): tracekit over the fleet entries at ``d4m_stream.config()``'s
+    geometry (smoke: the smoke config) on ``device``, the kernel route
+    on: the gate is the rules (0 fresh violations, no host read in the
+    graph entry ``service.point_query``), not the budgets, which are the
+    CPU's at the smoke config and are printed beside each entry's numbers
+    here.  Returns the rows and the launches of the recorded calls."""
+    from repro_torch.analysis import tracekit
+    from repro_torch.configs import d4m_stream
+    from repro_torch.kernels import registry
+    cfg = d4m_stream.smoke_config() if smoke else d4m_stream.config()
+    cfg = dataclasses.replace(cfg, use_kernel=True)
+    registry.reset_launches()
+    res = tracekit.audit_fleet(cfg, device=device)
+    launches = registry.launches()
+    if res["fresh"]:
+        raise AssertionError("tracekit: fresh violations\n" + "\n".join(
+            v.render() for v in res["fresh"]))
+    graph_reads = [v.render() for v in res["violations"]
+                   if v.rule == "J004" and v.entry == "service.point_query"]
+    if graph_reads:
+        raise AssertionError(f"host read in the graph entry: {graph_reads}")
+    budgets = {row["entry"]: row for row in tracekit.load_budgets(
+        tracekit.DEFAULT_BUDGETS)["entries"].values()}
+    rows = {}
+    for key, m in sorted(res["measured"].items()):
+        cpu = budgets.get(m["entry"], {})
+        rows[m["entry"]] = dict(
+            {k: m[k] for k in ("flops", "bytes_accessed", "peak_bytes",
+                               "calls", "host_reads_per_call",
+                               "launches_per_call")},
+            cpu_smoke_budget={k: cpu.get(k) for k in
+                              ("flops", "bytes_accessed", "peak_bytes")})
+        print(f"  {m['entry']}: flops {m['flops']:g}, bytes_accessed "
+              f"{m['bytes_accessed']:.6g} (CPU smoke budget "
+              f"{cpu.get('bytes_accessed')}), peak_bytes {m['peak_bytes']} "
+              f"({cpu.get('peak_bytes')}), host reads a call "
+              f"{m['host_reads_per_call']:g}, launches a call "
+              f"{m['launches_per_call']:g}", flush=True)
+    return dict(entries=rows, launches=launches,
+                violations=len(res["violations"]),
+                allowed=len(res["suppressed"]), fresh=0)
+
+
+def analysis_phase(torch, device, card: str, tmp: str, *,
+                   smoke: bool = False) -> dict:
+    """Phase 16: the analysis layer on the card — (a) + (b)
+    ``palkit_check``, (c) ``tracekit_check``; the kernels line's (d)
+    comes from (a)'s report.  ``smoke`` (the CPU rehearsal): palkit must
+    exit 2, tracekit runs the smoke config."""
+    t0 = time.perf_counter()
+    report = palkit_check(tmp)
+    res = dict(palkit=None if report is None else dict(
+        sanitizer={t: {k: v for k, v in r.items() if k != "per_kernel"}
+                   for t, r in report["sanitizer"].items()},
+        violations=len(report["violations"]), fresh=len(report["fresh"]),
+        measured=report["measured"]))
+    print(f"(a, b) palkit: {res['palkit'] and res['palkit']['fresh']} fresh "
+          f"violations; {card}", flush=True)
+    res["tracekit"] = tracekit_check(torch, device, smoke=smoke)
+    print(f"(c) tracekit: {res['tracekit']['violations']} violation(s), "
+          f"{res['tracekit']['allowed']} allowed, 0 new; launches of the "
+          f"recorded calls {res['tracekit']['launches']}; {card}",
+          flush=True)
+    res["report"] = report
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3671,6 +3838,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         staged = stages_phase(torch, "cuda", card, tmp)
     print(f"phase 15 wall {staged['wall_s']:.1f} s; {card}", flush=True)
+
+    phase("16 the analysis layer on the card: palkit (registry and main-path "
+          "jobs, compute-sanitizer or the checked build), tracekit at the "
+          "production config")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        analysed = analysis_phase(torch, "cuda", card, tmp)
+    if analysed["tracekit"]["launches"][MM] == 0:
+        raise AssertionError("tracekit's recorded calls launched no "
+                             "merge_multi: the kernel route was not audited")
+    print(f"phase 16 wall {analysed['wall_s']:.1f} s; {card}", flush=True)
     fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
                       for r in fleet["runs"]}
     fleet_launches.update({f"{s} gloo P=2": fleet[s]["merge_multi"]
@@ -3702,6 +3881,8 @@ def main() -> int:
             kernels_per_call=rec.get("kernels_per_call")))
         kernels[-1].update({k: v for k, v in rec.items()
                             if k not in kernels[-1] and k != "ops_kernels"})
+        kernels[-1].update(kernel_checks(analysed["report"],
+                                         ANALYSIS_JOBS[name]))
     # phase 12's launches, summed over each fleet's ranks; phase 9's query
     # batches' (the warm-up's eager batch, then replays) and phase 15's
     kernels[0]["phase12_launches"] = fleet_launches
@@ -3709,10 +3890,14 @@ def main() -> int:
     kernels[0]["phase9_replay_launches"] = svc["query_replay_launches"]
     kernels[0]["phase15_launches_per_replay"] = \
         staged["canon_batch"]["merge_multi_per_replay"]
+    kernels[0]["phase16_tracekit_launches"] = \
+        analysed["tracekit"]["launches"][MM]
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": served, "card": card}))
     print(json.dumps({"train_lm": trained, "card": card}))
     print(json.dumps({"stages": staged, "card": card}))
+    print(json.dumps({"analysis": {k: v for k, v in analysed.items()
+                                   if k != "report"}, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,16 +13,18 @@ Entry points (``core.hier.create``, ``core.distributed.create_instances``,
 ``device="cpu"``; with no CUDA device they raise instead of falling back.
 Every kernel wrapper runs its plain PyTorch version for a tensor on the
 CPU and launches its CUDA kernel for a tensor on the card.
+
+Importing the package itself loads nothing: ``analysis.lint`` and
+``analysis.baseline`` run with neither torch nor jax installed.
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point builds its state on: ``"cuda"`` unless the
     caller names another.  Raises when CUDA is asked for and absent — the
     port never drops to the CPU on its own."""
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -31,9 +33,10 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def generator(seed: int, device=None) -> torch.Generator:
+def generator(seed: int, device=None) -> "torch.Generator":
     """A ``torch.Generator`` on ``device`` (resolved as above) seeded with
     ``seed``: the port's stand-in for a JAX PRNG key."""
+    import torch
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     return gen

@@ -18,6 +18,12 @@ contract into executable assertions:
     check_plan(depths, cuts)      planned spill depths inside [0, L).
     check_hier(h, sr)             whole-state check: every layer + the
                                   counter.
+    check_vec(seg)                a ``vassoc.VecSegment``: keys [0, nnz)
+                                  sorted-unique, [nnz, C) SENTINEL with
+                                  zero payload rows, nnz <= C.
+    check_hiervec(h)              every layer of a ``vassoc.HierVec`` (its
+                                  int32 counter wraps by design: no
+                                  counter clause).
 
 The port runs eagerly, so a check needs no checkify: it reduces its
 conditions on the device to a few booleans and reads them to the host
@@ -165,6 +171,29 @@ def _counter_flags(h, name: str) -> Flags:
              "the (hi, lo) raw-update total")]
 
 
+def _vec_flags(seg, name: str) -> Flags:
+    key, val = seg.key, seg.val
+    C = key.shape[-1]
+    slot = torch.arange(C, device=key.device)
+    nnz = seg.nnz.unsqueeze(-1)
+    live = slot < nnz
+    return [
+        ((seg.nnz >= 0) & (seg.nnz <= C),
+         f"nnz bound violation in {name}: nnz outside [0, capacity]"),
+        (live | (key == SENTINEL),
+         f"sentinel-tail violation in {name}: slots [nnz, C) must hold the "
+         "SENTINEL key"),
+        (live.unsqueeze(-1) | (val == 0),
+         f"padding violation in {name}: payload rows [nnz, C) must be "
+         "zero"),
+        (~live | (key != SENTINEL),
+         f"canonical-form violation in {name}: SENTINEL key inside the "
+         "live prefix [0, nnz)"),
+        (~(slot[1:] < nnz) | (key[..., 1:] > key[..., :-1]),
+         f"canonical-form violation in {name}: keys [0, nnz) not "
+         "sorted-unique")]
+
+
 def check_canonical(seg, sr: Semiring = sr_mod.PLUS_TIMES,
                     name: str = "segment", sorted: bool = True) -> None:
     """Assert one segment (or a batch of them) upholds its buffer contract.
@@ -192,6 +221,24 @@ def check_plan(depths, cuts, name: str = "plan") -> None:
     _raise_first([((d >= 0) & (d < L),
                    f"spill-plan bound violation in {name}: planned depth "
                    f"outside [0, {L})")])
+
+
+def check_vec(seg, name: str = "vec") -> None:
+    """Assert a ``vassoc.VecSegment`` (key -> payload row) upholds its
+    contract: keys [0, nnz) sorted-unique and not SENTINEL, slots
+    [nnz, C) the SENTINEL key with a zero payload row, nnz in [0, C]."""
+    _raise_first(_vec_flags(seg, name))
+
+
+def check_hiervec(h, name: str = "hiervec") -> None:
+    """Every layer of a ``vassoc.HierVec`` by ``check_vec``, in one host
+    read.  Every layer is canonical (``vassoc.update`` merges the block
+    into layer 0); ``n_updates`` is int32 and wraps, as the reference
+    holds it, so it has no clause."""
+    flags = []
+    for i, layer in enumerate(h.layers):
+        flags += _vec_flags(layer, f"{name} layer {i}")
+    _raise_first(flags)
 
 
 def check_hier(h, sr: Semiring = sr_mod.PLUS_TIMES,
@@ -246,11 +293,14 @@ def validate_restored(tree, sr: Semiring = sr_mod.PLUS_TIMES,
     """Walk a restored tree and validate every associative-array state in
     it: ``HierAssoc``-shaped nodes get the whole-state check (layer 0
     against the raw contract — restore cannot know the append
-    discipline), free-standing segments get the raw-buffer check.
+    discipline), free-standing segments get the raw-buffer check;
+    ``HierVec``-shaped nodes (layers of ``key``/``val``/``nnz``) and
+    free-standing vector segments get ``check_hiervec`` / ``check_vec``.
 
     Uses duck typing (``layers``/``n_updates``/``cuts`` attrs,
-    ``hi``/``lo``/``val``/``nnz`` attrs) so the checkpoint layer does not
-    need to import core types for its template trees.
+    ``hi``/``lo``/``val``/``nnz`` or ``key``/``val``/``nnz`` attrs) so the
+    checkpoint layer does not need to import core types for its template
+    trees.
     """
     seen = set()
 
@@ -261,10 +311,19 @@ def validate_restored(tree, sr: Semiring = sr_mod.PLUS_TIMES,
     def is_seg(x):
         return all(hasattr(x, a) for a in ("hi", "lo", "val", "nnz"))
 
+    def is_vec(x):
+        return all(hasattr(x, a) for a in ("key", "val", "nnz"))
+
     def visit(node, label):
         if id(node) in seen:
             return
         seen.add(id(node))
+        if is_hier(node) and node.layers and is_vec(node.layers[0]):
+            check_hiervec(node, name=label)
+            return
+        if is_vec(node):
+            check_vec(node, name=label)
+            return
         if is_hier(node):
             validate_hier(node, sr, l0_sorted=False, name=label)
             return

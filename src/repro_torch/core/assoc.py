@@ -104,6 +104,8 @@ def empty(capacity: int, dtype=torch.float32,
     )
 
 
+# torch.sort has no two-key sort: each (hi, lo) pair packs into one int64
+# tracekit: allow(J005) entry=* the pair's sort key, on purpose
 def pack_key(hi: Tensor, lo: Tensor) -> Tensor:
     """One int64 per (hi, lo) pair, ordered as the signed lexicographic
     pair.  lo is offset by 2**31 so a negative lo sorts below a
@@ -351,6 +353,7 @@ def extract_row(seg: AssocSegment, row) -> Tuple[Tensor, Tensor, Tensor]:
     return seg.lo, seg.val, seg.hi == row
 
 
+# tracekit: allow(J005) entry=* scatter/gather take int64 ids (never keys)
 def _segment_reduce(sr: Semiring, vals: Tensor, ids: Tensor, n: int
                     ) -> Tensor:
     """``sr.add`` of ``vals`` per id in ``[0, n)`` along the last axis,

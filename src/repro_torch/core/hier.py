@@ -142,6 +142,7 @@ def metrics_snapshot_wrapped(sig: stages.Signature) -> stages.Wrapped:
     return stages.wrap(_metrics_snapshot_body, "hier.metrics_snapshot", sig)
 
 
+# tracekit: allow(J005) entry=hier.metrics_snapshot bincount takes int64
 def _metrics_snapshot_body(h: HierAssoc) -> dict:
     nnz = [l.nnz for l in h.layers]
     nnz_total = torch.stack([torch.sum(n).to(torch.int32) for n in nnz])
@@ -257,6 +258,7 @@ def _cascade(h: HierAssoc, sr: Semiring, use_kernel: bool = False,
 
 # ---------------------------------------------------------- fused cascade ---
 
+# tracekit: allow(J005) entry=* scatter_ takes int64 append positions
 def _lazy_append(l0: AssocSegment, hi: Tensor, lo: Tensor, val: Tensor,
                  n_live: Tensor | None = None) -> Tuple[AssocSegment, Tensor]:
     """Append a block into the layer-0 buffer (LSM memtable discipline).
@@ -436,6 +438,8 @@ def _update_fused(h: HierAssoc, rows: Tensor, cols: Tensor, vals: Tensor,
     B = rows.shape[-1]
     vdtype = h.layers[0].dtype
     rows, cols, vals, n_live = _prepare_block(h, rows, cols, vals, mask, sr)
+    # the depth, read on the host, runs only the layers that take part
+    # tracekit: allow(J004) entry=hier.update the reference's lax.switch
     depth = int(_plan_spill_depth(h, n_live))
     caps = h.capacities
     L = h.num_layers

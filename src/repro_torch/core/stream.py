@@ -315,6 +315,8 @@ def _update_instances_(states, rows, cols, vals, sr, use_kernel, lazy_l0,
     may_not_fit = mask is not None and B > caps0 - states.cuts[0]
     rows, cols, vals, n_live = hier._prepare_block(states, rows, cols, vals,
                                                    mask, sr)
+    # the plan, read on the host once a block, picks the layers to merge
+    # tracekit: allow(J004) entry=*ingest* the reference's lax.switch
     depths = hier._plan_spill_depth(states, n_live).tolist()
     if contracts.deep_checks_active():
         # the plan the executor trusts to slice layers, bound-checked
@@ -422,6 +424,8 @@ def _ingest_instances(states, rows, cols, vals, sr, use_kernel, lazy_l0,
         rows, cols, vals = _chunk_stream(
             rows, cols, vals, chunk, fused,
             states.layers[0].capacity - states.cuts[0])
+    # a clone: the caller's state stays valid (make_ingest_fn's contract)
+    # tracekit: allow(J003) entry=service.ingest one state copy a round
     s = clone_state(states)
     snaps = []
     for t in range(rows.shape[1]):

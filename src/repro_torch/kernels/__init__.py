@@ -13,7 +13,10 @@ Each family ``<name>/`` has:
 ``ref.py``      the oracle.
 
 ``registry.py`` lists one job per kernel configuration (inputs bit for bit
-the JAX package's) and holds the launch counters.  Families:
+the JAX package's) and holds the launch counters.  ``analysis.cuh``,
+included by every source, exports each library's kernel resources and
+launch configurations to ``analysis/palkit.py`` and holds the device-side
+checks of the checked build (``-DREPRO_KERNEL_CHECKS``).  Families:
 
 ``hier_merge``     merge-path two-way / multi-way canonical-segment merge —
                    the paper's layer-merge hot path;

@@ -32,7 +32,11 @@
 
 #include <cstdint>
 
+#include "../../analysis.cuh"
+
 namespace {
+
+using repro_analysis::kBounds;
 
 constexpr int kThreads = 256;
 
@@ -52,10 +56,16 @@ bag_kernel(const float* __restrict__ table, const int* __restrict__ idx,
   float acc[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) acc[k] = 0.0f;
+  KCHECK(col >= 0 && col + W <= d, kBounds);
   for (int l = 0; l < bag; ++l) {
+    CHECKED_ONLY(const long long rows = repro_analysis::g_extent;
+                 const int ix = __ldg(ib + l);
+                 KCHECK(ix >= 0 && (rows <= 0 || ix < rows), kBounds);)
     const long long row = static_cast<long long>(__ldg(ib + l)) * d;
     const float wl = __ldg(wb + l);
     if constexpr (W == 4) {
+      KCHECK((reinterpret_cast<uintptr_t>(table + row + col) & 15) == 0,
+             kBounds);
       const float4 v = __ldg(reinterpret_cast<const float4*>(table + row + col));
       acc[0] = __fadd_rn(acc[0], __fmul_rn(wl, v.x));
       acc[1] = __fadd_rn(acc[1], __fmul_rn(wl, v.y));
@@ -73,9 +83,58 @@ bag_kernel(const float* __restrict__ table, const int* __restrict__ idx,
   }
 }
 
+#define EB_K(...) {reinterpret_cast<const void*>(&__VA_ARGS__), #__VA_ARGS__}
+const repro_analysis::KernelEntry kKernels[] = {
+    EB_K(bag_kernel<1>),
+    EB_K(bag_kernel<4>),
+};
+#undef EB_K
+
+// The launch of one call (or, with a log, its record only).
+int run_bag(const float* tb, const int* ix, const float* wt, float* o,
+            long long n_bags, int bag, int d, int vec, cudaStream_t s,
+            repro_analysis::LaunchLog* log) {
+  if (n_bags < 0 || bag < 0 || d < 0 || (vec && d % 4 != 0))
+    return cudaErrorInvalidValue;
+  const int width = vec ? 4 : 1;
+  const long long threads = n_bags * (d / width);
+  if (threads == 0) return cudaSuccess;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const void* fn = vec ? reinterpret_cast<const void*>(&bag_kernel<4>)
+                       : reinterpret_cast<const void*>(&bag_kernel<1>);
+  if (repro_analysis::dry_run(log, kKernels, fn, blocks, kThreads, 0))
+    return cudaSuccess;
+  cudaError_t e = repro_analysis::poison(
+      o, static_cast<size_t>(n_bags) * d * sizeof(float), s);
+  if (e == cudaSuccess) e = repro_analysis::push_extent(s);
+  if (e != cudaSuccess) return e;
+  if (vec) {
+    bag_kernel<4><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        tb, ix, wt, o, n_bags, bag, d);
+  } else {
+    bag_kernel<1><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        tb, ix, wt, o, n_bags, bag, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+REPRO_ANALYSIS_EXPORTS(eb, kKernels)
+
 extern "C" {
+
+// The launch one call makes, without launching (see hm_launch_config):
+// 4 ints a launch in rows, at most cap; returns the count or minus a
+// cudaError_t.
+int eb_launch_config(long long n_bags, int bag, int d, int vec, int* rows,
+                     int cap) {
+  repro_analysis::LaunchLog log{rows, cap, 0};
+  const int e = run_bag(nullptr, nullptr, nullptr, nullptr, n_bags, bag, d,
+                        vec, nullptr, &log);
+  return e != 0 ? -e : log.n;
+}
 
 const char* eb_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
@@ -86,26 +145,10 @@ const char* eb_error_string(int e) {
 // aligned.  Returns a cudaError_t (0 on success).
 int eb_embedding_bag(void* table, void* idx, void* w, void* out,
                      long long n_bags, int bag, int d, int vec, void* stream) {
-  if (n_bags < 0 || bag < 0 || d < 0 || (vec && d % 4 != 0))
-    return cudaErrorInvalidValue;
-  const int width = vec ? 4 : 1;
-  const long long threads = n_bags * (d / width);
-  if (threads == 0) return cudaSuccess;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* tb = static_cast<const float*>(table);
-  const int* ix = static_cast<const int*>(idx);
-  const float* wt = static_cast<const float*>(w);
-  float* o = static_cast<float*>(out);
-  if (vec) {
-    bag_kernel<4><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        tb, ix, wt, o, n_bags, bag, d);
-  } else {
-    bag_kernel<1><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        tb, ix, wt, o, n_bags, bag, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_bag(static_cast<const float*>(table),
+                 static_cast<const int*>(idx), static_cast<const float*>(w),
+                 static_cast<float*>(out), n_bags, bag, d, vec,
+                 static_cast<cudaStream_t>(stream), nullptr);
 }
 
 }  // extern "C"

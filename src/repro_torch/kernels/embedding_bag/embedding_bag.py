@@ -53,6 +53,10 @@ def _lib():
         lib.eb_embedding_bag.restype = ctypes.c_int
         lib.eb_error_string.argtypes = [ctypes.c_int]
         lib.eb_error_string.restype = ctypes.c_char_p
+        lib.eb_launch_config.argtypes = [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.eb_launch_config.restype = ctypes.c_int
         _BOUND["lib"] = lib
     return _BOUND["lib"]
 
@@ -74,6 +78,24 @@ def _check(table, indices, weights):
             f"{weights.dtype}{tuple(weights.shape)}")
 
 
+def vector_path(table) -> int:
+    """1 when the kernel reads rows as float4: D % 4 == 0 and the table
+    16-byte aligned (so is every row start)."""
+    return int(table.shape[1] % 4 == 0 and table.data_ptr() % 16 == 0)
+
+
+def embedding_bag_launch_config(table, indices, weights) -> list:
+    """``embedding_bag_cuda``'s launch for these operands, as the C side
+    decides it (``eb_launch_config``)."""
+    _check(table, indices, weights)
+    lib = _lib()
+    rows = (ctypes.c_int * (4 * build.MAX_LAUNCHES))()
+    n = lib.eb_launch_config(indices.shape[0], indices.shape[1],
+                             table.shape[1], vector_path(table), rows,
+                             build.MAX_LAUNCHES)
+    return build.launch_rows("eb", n, rows)
+
+
 def embedding_bag_cuda(table, indices, weights):
     """table [V, D] f32; indices [B, L] int32 in [0, V); weights [B, L] f32
     -> [B, D] f32.  CPU tensors run ``embedding_bag_plain``; CUDA tensors
@@ -90,7 +112,7 @@ def embedding_bag_cuda(table, indices, weights):
     if n_bags == 0 or d == 0:
         return out
     # one float4 per thread when every row starts on a 16-byte boundary
-    vec = int(d % 4 == 0 and table.data_ptr() % 16 == 0)
+    vec = vector_path(table)
     lib = _lib()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -100,5 +122,6 @@ def embedding_bag_cuda(table, indices, weights):
     if err != 0:
         raise RuntimeError(f"embedding_bag_cuda: CUDA launch failed with "
                            f"error {err} ({lib.eb_error_string(err).decode()})")
-    registry.count(COUNTER)
+    # a row and its index and weight per (bag, item), a row out per bag
+    registry.count(COUNTER, n_bags * bag * (4 * d + 8) + 4 * n_bags * d)
     return out

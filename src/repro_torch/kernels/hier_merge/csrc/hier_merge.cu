@@ -82,7 +82,12 @@
 #include <climits>
 #include <cstdint>
 
+#include "../../analysis.cuh"
+
 namespace {
+
+using repro_analysis::kBounds;
+using repro_analysis::kSync;
 
 constexpr int kTile = 256;           // output positions per merge CTA
 constexpr int kPrepThreads = 1024;
@@ -166,6 +171,7 @@ __device__ void rank_group(const int* __restrict__ bh,
   static_assert(sizeof(s_key) + sizeof(s_cnt) <= 48 * 1024,
                 "a chunk's rank tiles exceed static shared memory");
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  KCHECK(len >= 0 && len <= kRankCap, kBounds);
   for (int j = t; j < len; j += blockDim.x) s_key[j] = order_key(bh[j], bl[j]);
   __syncthreads();
   const int i = group * 32 + lane;
@@ -184,6 +190,7 @@ __device__ void rank_group(const int* __restrict__ bh,
     int rank = 0;
 #pragma unroll
     for (int w = 0; w < kPrepThreads / 32; ++w) rank += s_cnt[w][lane];
+    KCHECK(rank >= 0 && rank < len, kBounds);
     sh[rank] = bh[i];
     sl[rank] = bl[i];
     sv[rank] = bv[i];
@@ -280,6 +287,7 @@ __device__ __forceinline__ unsigned long long load_status(
 __device__ int diagonal(const int* __restrict__ ah, const int* __restrict__ al,
                         int na, const int* __restrict__ bh,
                         const int* __restrict__ bl, int nb, int d, int lane) {
+  KCHECK(__activemask() == kFull, kSync);
   int lo = max(0, d - nb), hi = min(d, na);
   while (lo < hi) {
     const int step = (hi - lo + 31) >> 5;
@@ -338,6 +346,7 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
     __syncthreads();
   }
   const int tile = kCombine ? s_tile : blockIdx.x;
+  KCHECK(tile >= 0 && tile < static_cast<int>(gridDim.x), kBounds);
   const int s = tile * kTile;
   const int e = min(s + kTile, n);
   if (warp < 2) {
@@ -348,6 +357,10 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
   const int a0 = s_diag[0], a1 = s_diag[1];
   const int b0 = s - a0, b1 = e - a1;
   const int ca = a1 - a0, cnt = e - s, cb = cnt - ca;
+  if (t == 0)
+    KCHECK(a0 >= 0 && a0 <= a1 && a1 <= na && b0 >= 0 && b0 <= b1 &&
+               b1 <= nb && cnt >= 0 && cnt <= kTile,
+           kBounds);
   if (t < ca) {
     s_h[t] = ah[a0 + t]; s_l[t] = al[a0 + t]; s_v[t] = av[a0 + t];
   } else if (t < cnt) {
@@ -389,6 +402,7 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
         lo < ca && (y >= cb || !lex_gt(s_h[lo], s_l[lo], s_h[ca + y],
                                        s_l[ca + y]));
     const int src = take_a ? lo : ca + y;
+    KCHECK(src >= 0 && src < cnt, kBounds);
     h = s_h[src]; l = s_l[src]; vb = s_v[src];
   }
   if (!kCombine) {
@@ -407,6 +421,7 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
   const V zero = Val<V>::of(zero_bits);
 
   // Tile-local segmented inclusive scan of (head seen, value).
+  KCHECK(__activemask() == kFull, kSync);
   int f = head;
   V v = live ? Val<V>::of(vb) : zero;
   for (int d = 1; d < 32; d <<= 1) {
@@ -443,6 +458,8 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
   if (t == kTile - 1) { s_agg_f = f; s_agg_v = Val<V>::bits(v); }
   __syncthreads();
   if (warp == 0) {
+    KCHECK(__activemask() == kFull, kSync);
+    if (lane == 0) KCHECK(tile < (n + kTile - 1) / kTile, kBounds);
     const int agg_f = s_agg_f;
     const V agg_v = Val<V>::of(s_agg_v);
     unsigned long long* status = state + 1;
@@ -460,9 +477,19 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
         // before tile 0: an inclusive prefix of nothing
         unsigned long long w = pack(2, 0, 0, Val<V>::bits(zero));
         if (j >= 0) {
+#ifdef REPRO_KERNEL_CHECKS
+          // bounded: a tile that never publishes is counted, not waited on
+          long long spins = 0;
+          do {
+            w = load_status(status + j);
+          } while ((w >> 62) == 0 && ++spins < repro_analysis::kSpinLimit);
+          KCHECK((w >> 62) != 0, kSync);
+          if ((w >> 62) == 0) w = pack(2, 0, 0, Val<V>::bits(zero));
+#else
           do {
             w = load_status(status + j);
           } while ((w >> 62) == 0);
+#endif
         }
         const unsigned incl = __ballot_sync(kFull, (w >> 62) == 2);
         const int g = incl ? __ffs(incl) - 1 : 31;
@@ -496,6 +523,7 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
   __syncthreads();
   if (keep) {
     const int dest = s_pc + dest_in_tile;
+    KCHECK(dest >= 0 && dest < n, kBounds);
     oh[dest] = h;
     ol[dest] = l;
     ov[dest] = static_cast<S>(
@@ -504,6 +532,33 @@ merge_kernel(const int* __restrict__ ah, const int* __restrict__ al,
 }
 
 // ---------------------------------------------------------------- host ----
+
+#define HM_K(...) {reinterpret_cast<const void*>(&__VA_ARGS__), #__VA_ARGS__}
+// Every kernel instantiation (palkit's hm_kernel_attrs and the kernel index
+// of hm_launch_config).
+const repro_analysis::KernelEntry kKernels[] = {
+    HM_K(prepare_kernel<uint32_t>),
+    HM_K(prepare_kernel<uint16_t>),
+    HM_K(merge_kernel<false, float, 0>),
+    HM_K(merge_kernel<false, int, 0>),
+    HM_K(merge_kernel<false, __half, 0>),
+    HM_K(merge_kernel<false, __nv_bfloat16, 0>),
+    HM_K(merge_kernel<true, float, 0>),
+    HM_K(merge_kernel<true, float, 1>),
+    HM_K(merge_kernel<true, float, 2>),
+    HM_K(merge_kernel<true, int, 0>),
+    HM_K(merge_kernel<true, int, 1>),
+    HM_K(merge_kernel<true, int, 2>),
+    HM_K(merge_kernel<true, __half, 0>),
+    HM_K(merge_kernel<true, __half, 1>),
+    HM_K(merge_kernel<true, __half, 2>),
+    HM_K(merge_kernel<true, __nv_bfloat16, 0>),
+    HM_K(merge_kernel<true, __nv_bfloat16, 1>),
+    HM_K(merge_kernel<true, __nv_bfloat16, 2>),
+};
+#undef HM_K
+
+using repro_analysis::LaunchLog;
 
 template <typename S> struct Operand {
   const int* h;
@@ -541,7 +596,12 @@ size_t scratch_words(int block_len, int total, int n_sorted) {
 template <bool kCombine, typename V, int Kind, typename S>
 cudaError_t launch_merge(const Operand<S>& a, const Operand<S>& b, int* oh,
                          int* ol, S* ov, unsigned long long* state, int* nnz,
-                         uint32_t zero_bits, cudaStream_t s) {
+                         uint32_t zero_bits, cudaStream_t s, LaunchLog* log) {
+  if (repro_analysis::dry_run(
+          log, kKernels,
+          reinterpret_cast<const void*>(&merge_kernel<kCombine, V, Kind>),
+          num_tiles(a.n + b.n), kTile, 0))
+    return cudaSuccess;
   merge_kernel<kCombine, V, Kind><<<num_tiles(a.n + b.n), kTile, 0, s>>>(
       a.h, a.l, a.v, a.n, b.h, b.l, b.v, b.n, oh, ol, ov, state, nnz,
       zero_bits);
@@ -552,28 +612,30 @@ cudaError_t launch_merge(const Operand<S>& a, const Operand<S>& b, int* oh,
 template <typename V, typename S>
 cudaError_t launch_combine(int kind, const Operand<S>& a, const Operand<S>& b,
                            int* oh, int* ol, S* ov, unsigned long long* state,
-                           int* nnz, uint32_t zero_bits, cudaStream_t s) {
+                           int* nnz, uint32_t zero_bits, cudaStream_t s,
+                           LaunchLog* log) {
   switch (kind) {
     case 0:
       return launch_merge<true, V, 0>(a, b, oh, ol, ov, state, nnz, zero_bits,
-                                      s);
+                                      s, log);
     case 1:
       return launch_merge<true, V, 1>(a, b, oh, ol, ov, state, nnz, zero_bits,
-                                      s);
+                                      s, log);
     case 2:
       return launch_merge<true, V, 2>(a, b, oh, ol, ov, state, nnz, zero_bits,
-                                      s);
+                                      s, log);
   }
   return cudaErrorInvalidValue;
 }
 
 // The shared host routine for values of type V: src holds (hi, lo, val)
 // pointers per source; source 0 is the block (unsorted unless
-// first_sorted), sources 1.. are canonical runs.
+// first_sorted), sources 1.. are canonical runs.  With a log it launches
+// nothing and records the launches it would make (hm_launch_config).
 template <typename V>
 int merge_values(const void* const* src, const int* src_len, int n_src,
                  int first_sorted, void* out, void* scratch, int sr_kind,
-                 uint32_t zero_bits, cudaStream_t s) {
+                 uint32_t zero_bits, cudaStream_t s, LaunchLog* log) {
   using S = typename Val<V>::S;
   long long sum = 0;
   for (int r = 0; r < n_src; ++r) {
@@ -586,7 +648,17 @@ int merge_values(const void* const* src, const int* src_len, int n_src,
   int* ol = oh + total;
   int* cnt = oh + 2 * total;
   S* ov = reinterpret_cast<S*>(cnt + 1);
-  if (total == 0) return cudaMemsetAsync(cnt, 0, sizeof(int), s);
+  if (total == 0) return log ? cudaSuccess : cudaMemsetAsync(cnt, 0, sizeof(int), s);
+  if (!log) {  // the checked build's poison (a no-op in production)
+    const int n_sorted = first_sorted ? n_src : n_src - 1;
+    const int blen = first_sorted ? 0 : src_len[0];
+    cudaError_t e = repro_analysis::poison(
+        out, (2 * static_cast<size_t>(total) + 1) * 4 + total * sizeof(S), s);
+    if (e == cudaSuccess)
+      e = repro_analysis::poison(scratch,
+                                 scratch_words(blen, total, n_sorted) * 4, s);
+    if (e != cudaSuccess) return e;
+  }
   unsigned long long* state = static_cast<unsigned long long*>(scratch);
   const int n_state = 1 + num_tiles(total);
   int* sorted = reinterpret_cast<int*>(state) + state_words(total);
@@ -621,11 +693,15 @@ int merge_values(const void* const* src, const int* src_len, int n_src,
   if (chunks > kMaxOperands) return cudaErrorInvalidValue;
   if (n_ops == 1) ops[n_ops++] = {nullptr, nullptr, nullptr, 0};
 
-  prepare_kernel<S><<<n_rank + inits, kPrepThreads, 0, s>>>(
-      static_cast<const int*>(ptr(0, 0)), static_cast<const int*>(ptr(0, 1)),
-      static_cast<const S*>(ptr(0, 2)), block_len, n_rank, sh, sl, sv, oh, ol,
-      ov, total, static_cast<S>(zero_bits), state, n_state);
-  HM_CHECK();
+  if (!repro_analysis::dry_run(
+          log, kKernels, reinterpret_cast<const void*>(&prepare_kernel<S>),
+          n_rank + inits, kPrepThreads, 0)) {
+    prepare_kernel<S><<<n_rank + inits, kPrepThreads, 0, s>>>(
+        static_cast<const int*>(ptr(0, 0)), static_cast<const int*>(ptr(0, 1)),
+        static_cast<const S*>(ptr(0, 2)), block_len, n_rank, sh, sl, sv, oh,
+        ol, ov, total, static_cast<S>(zero_bits), state, n_state);
+    HM_CHECK();
+  }
 
   int* tmp = sorted + 3 * block_len;
   Operand<S> acc = ops[0];
@@ -633,13 +709,13 @@ int merge_values(const void* const* src, const int* src_len, int n_src,
     const Operand<S>& b = ops[i];
     if (i == n_ops - 1) {
       return launch_combine<V>(sr_kind, acc, b, oh, ol, ov, state, cnt,
-                               zero_bits, s);
+                               zero_bits, s, log);
     }
     int* th = tmp + ((i - 1) & 1) * 3 * total;
     const int n = acc.n + b.n;
     S* tv = reinterpret_cast<S*>(th + 2 * n);
     cudaError_t e = launch_merge<false, V, 0>(acc, b, th, th + n, tv, state,
-                                              cnt, zero_bits, s);
+                                              cnt, zero_bits, s, log);
     if (e != cudaSuccess) return e;
     acc = {th, th + n, tv, n};
   }
@@ -649,30 +725,48 @@ int merge_values(const void* const* src, const int* src_len, int n_src,
 // vtype: 0 float32, 1 int32, 2 float16, 3 bfloat16 (the wrapper's _VTYPE).
 int run_merge(const void* const* src, const int* src_len, int n_src,
               int first_sorted, void* out, void* scratch, int sr_kind,
-              int vtype, int zero_bits, void* stream) {
+              int vtype, int zero_bits, void* stream,
+              LaunchLog* log = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_src < 1 || sr_kind < 0 || sr_kind > 2) return cudaErrorInvalidValue;
   const uint32_t z = static_cast<uint32_t>(zero_bits);
   switch (vtype) {
     case 0:
       return merge_values<float>(src, src_len, n_src, first_sorted, out,
-                                 scratch, sr_kind, z, s);
+                                 scratch, sr_kind, z, s, log);
     case 1:
       return merge_values<int>(src, src_len, n_src, first_sorted, out,
-                               scratch, sr_kind, z, s);
+                               scratch, sr_kind, z, s, log);
     case 2:
       return merge_values<__half>(src, src_len, n_src, first_sorted, out,
-                                  scratch, sr_kind, z, s);
+                                  scratch, sr_kind, z, s, log);
     case 3:
       return merge_values<__nv_bfloat16>(src, src_len, n_src, first_sorted,
-                                         out, scratch, sr_kind, z, s);
+                                         out, scratch, sr_kind, z, s, log);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+REPRO_ANALYSIS_EXPORTS(hm, kKernels)
+
 extern "C" {
+
+// The launches of one merge of n_src operands of lengths src_len
+// (first_sorted: 1 for the pairwise merge, 0 when source 0 is the unsorted
+// block), without launching: 4 ints a launch in rows (kernel index in
+// hm_kernel_attrs, grid, block, dynamic shared bytes), at most cap.
+// Returns the number of launches, or minus a cudaError_t.
+int hm_launch_config(const int* src_len, int n_src, int first_sorted,
+                     int sr_kind, int vtype, int* rows, int cap) {
+  if (n_src < 1 || n_src > kMaxOperands + 1) return -cudaErrorInvalidValue;
+  static const void* const kNull[3 * (kMaxOperands + 1)] = {};
+  LaunchLog log{rows, cap, 0};
+  const int e = run_merge(kNull, src_len, n_src, first_sorted, nullptr,
+                          nullptr, sr_kind, vtype, 0, nullptr, &log);
+  return e != 0 ? -e : log.n;
+}
 
 // int32 words of a merge's scratch buffer: an unsorted block of block_len
 // entries (0 for the pairwise merge), n_sorted canonical operands, total

@@ -223,6 +223,9 @@ def _lib():
         lib.hm_merge.restype = _I
         lib.hm_error_string.argtypes = [_I]
         lib.hm_error_string.restype = ctypes.c_char_p
+        lib.hm_launch_config.argtypes = [ctypes.POINTER(_I), _I, _I, _I, _I,
+                                         ctypes.POINTER(_I), _I]
+        lib.hm_launch_config.restype = _I
         _BOUND["lib"] = lib
     return _BOUND["lib"]
 
@@ -317,9 +320,38 @@ def _launch(what: str, counter: str, srcs, block_unsorted: bool,
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
                            f"({lib.hm_error_string(err).decode()})")
-    registry.count(counter)
+    # read and written once: (hi, lo, val) of every entry in, out, and nnz
+    entry = 8 + torch.empty((), dtype=vdtype).element_size()
+    registry.count(counter, 2 * n * entry + 4)
     return (out[:n], out[n:2 * n], out[2 * n + 1:].view(vdtype)[:n],
             out[2 * n:2 * n + 1])
+
+
+def _launch_config(srcs, block_unsorted: bool, sr_name: str) -> list:
+    """The launches ``_launch`` makes for these operands, as the C side
+    decides them (``hm_launch_config``: a dry run of the same routine)."""
+    _check_operands(srcs, "launch_config", block_unsorted)
+    lib = _lib()
+    lens = (_I * len(srcs))(*[s[0].shape[0] for s in srcs])
+    rows = (_I * (4 * build.MAX_LAUNCHES))()
+    n = lib.hm_launch_config(lens, len(srcs), 0 if block_unsorted else 1,
+                             _SR_KIND[sr_name], _VTYPE[srcs[0][2].dtype],
+                             rows, build.MAX_LAUNCHES)
+    return build.launch_rows("hm", n, rows)
+
+
+def merge_launch_config(hi_a, lo_a, val_a, hi_b, lo_b, val_b, *,
+                        sr_name: str = "plus.times") -> list:
+    """``merge_cuda``'s launches for these operands (palkit)."""
+    return _launch_config([(hi_a, lo_a, val_a), (hi_b, lo_b, val_b)], False,
+                          sr_name)
+
+
+def merge_multi_launch_config(block, runs, *,
+                              sr_name: str = "plus.times") -> list:
+    """``merge_multi_cuda``'s launches for these operands (palkit)."""
+    return _launch_config([tuple(block)] + [tuple(r) for r in runs], True,
+                          sr_name)
 
 
 def _route(x) -> str:

@@ -20,7 +20,10 @@ wrapper launched inside a captured CUDA graph counts at every replay
 (``add_launches``), not at the capture.
 
 ``AUDITED_FILES`` names the CUDA sources (relative to this package) that
-define kernels; ``build.py`` compiles exactly these.
+define kernels; ``build.py`` compiles exactly these.  ``jobs()`` is the
+audit universe of ``analysis/palkit.py`` (each job also names its launch
+configuration query); ``main_path_jobs()`` adds the kernels at the main
+path's shapes (``chip_smoke.py`` phase 3's), built on the card.
 """
 from __future__ import annotations
 
@@ -44,9 +47,18 @@ LAUNCHES = {
 }
 
 
-def count(name: str) -> None:
-    """Add one launch of ``name`` (called by the wrapper that launched)."""
+# Set by ``analysis.tracekit`` while it records a call: a ``ctypes``
+# launch dispatches no aten op, so each wrapper reports the bytes its
+# kernel must move (each operand read once, each output written once).
+BYTES_HOOK = None
+
+
+def count(name: str, nbytes: int = 0) -> None:
+    """Add one launch of ``name`` (called by the wrapper that launched,
+    with the bytes the launch moves)."""
     LAUNCHES[name] += 1
+    if BYTES_HOOK is not None and nbytes:   # the sort route reports none
+        BYTES_HOOK(name, nbytes)
 
 
 def add_launches(counts: dict, sign: int = 1) -> None:
@@ -89,8 +101,10 @@ class KernelJob:
 
     ``fn`` is the wrapper (plain version on a CPU tensor, CUDA kernel on a
     card tensor); ``plain`` its plain PyTorch version; ``make_inputs`` builds
-    numpy operands for a seed; ``oracle`` the reference (``ref.py``) on the
-    same operands; ``counter`` the ``LAUNCHES`` key the wrapper bumps."""
+    numpy operands for a seed (a main-path job: tensors on the card);
+    ``oracle`` the reference (``ref.py``) on the same operands; ``counter``
+    the ``LAUNCHES`` key the wrapper bumps; ``launch_config`` the wrapper's
+    launch query on the same operands (palkit)."""
     name: str
     family: str
     fn: Callable
@@ -99,6 +113,7 @@ class KernelJob:
     oracle: Callable
     counter: str
     rtol: float = 1e-4
+    launch_config: Callable = None
 
 
 SENTINEL = np.int32(np.iinfo(np.int32).max)
@@ -232,7 +247,9 @@ def jobs() -> Tuple[KernelJob, ...]:
             plain=functools.partial(hm.merge_plain, sr_name=sr_name),
             make_inputs=_merge_inputs(cap_a, cap_b, 200, dtype, sr_name),
             oracle=functools.partial(hm_ref.merge_ref, sr_name=sr_name),
-            counter="hier_merge.merge", rtol=rtol))
+            counter="hier_merge.merge", rtol=rtol,
+            launch_config=functools.partial(hm.merge_launch_config,
+                                            sr_name=sr_name)))
 
     merge_job(256, 256, "plus.times", np.float32)
     merge_job(256, 256, "max.plus", np.float32)
@@ -252,19 +269,25 @@ def jobs() -> Tuple[KernelJob, ...]:
             [bh] + [r[0] for r in runs], [bl] + [r[1] for r in runs],
             [bv] + [r[2] for r in runs], sr_name="plus.times")
 
+    def multi_config(bh, bl, bv, runs):
+        return hm.merge_multi_launch_config((bh, bl, bv), runs,
+                                            sr_name="plus.times")
+
     out.append(KernelJob(
         name="hier_merge.merge_multi_cuda/n1024.k2",
         family="hier_merge", fn=multi_fn, plain=multi_plain,
         make_inputs=_merge_multi_inputs(192, (256, 512), 300, np.float32,
                                         "plus.times"),
-        oracle=multi_oracle, counter="hier_merge.merge_multi", rtol=1e-4))
+        oracle=multi_oracle, counter="hier_merge.merge_multi", rtol=1e-4,
+        launch_config=multi_config))
 
     out.append(KernelJob(
         name="embedding_bag.embedding_bag_cuda/v512.d128",
         family="embedding_bag", fn=eb.embedding_bag_cuda,
         plain=eb.embedding_bag_plain,
         make_inputs=_embedding_inputs(512, 128, 16, 8),
-        oracle=eb_ref.embedding_bag_ref, counter=eb.COUNTER, rtol=2e-5))
+        oracle=eb_ref.embedding_bag_ref, counter=eb.COUNTER, rtol=2e-5,
+        launch_config=eb.embedding_bag_launch_config))
 
     def segment_fn(msg, seg, starts):
         return sa.segment_sum_cuda(msg, seg, starts, 2, tn=128)
@@ -275,9 +298,123 @@ def jobs() -> Tuple[KernelJob, ...]:
     def segment_oracle(msg, seg, starts):
         return sa_ref.segment_sum_ref(msg, seg, 256)
 
+    def segment_config(msg, seg, starts):
+        return sa.segment_sum_launch_config(msg, seg, starts, 2, tn=128)
+
     out.append(KernelJob(
         name="segment_agg.segment_sum_cuda/t2.d128",
         family="segment_agg", fn=segment_fn, plain=segment_plain,
         make_inputs=_segment_inputs(384, 128, 2, 128, 128),
-        oracle=segment_oracle, counter=sa.COUNTER, rtol=2e-5))
+        oracle=segment_oracle, counter=sa.COUNTER, rtol=2e-5,
+        launch_config=segment_config))
+    return tuple(out)
+
+
+# the main path's shapes (chip_smoke.py phase 3): DCN-v2's serve_bulk batch
+# on its table, GraphCast's r = 6 multimesh and GAT-Cora's graph
+SERVE_BULK_BAGS = 262_144 * 26
+DCN_TABLE_ROWS = 94_306_304
+GRAPHCAST_D, GAT_D = 512, 64
+
+
+def main_path_jobs(device="cuda") -> Tuple[KernelJob, ...]:
+    """Every kernel at the shapes the main path gives it: ``merge_multi``
+    at k = 1 (3072 + 16384; also in bfloat16, as phase 10's bf16 fleet
+    runs it), the pairwise merge at 19456 + 13312,
+    ``embedding_bag`` at ``serve_bulk`` (6,815,744 bags of one row of 16
+    floats on the 94,306,304-row table) and ``segment_sum`` reading
+    through ``order`` at GraphCast's processor graph (r = 6: 327,660 edges
+    into 40,962 nodes, D = 512) and GAT-Cora's (10,556 edges into 2,708
+    nodes, D = 64).  ``make_inputs(seed)`` draws the operands on
+    ``device`` (a few GB for the table); the oracles are the plain
+    versions."""
+    import torch
+
+    from repro_torch.data import graphs
+    from repro_torch.kernels.embedding_bag import embedding_bag as eb
+    from repro_torch.kernels.hier_merge import hier_merge as hm
+    from repro_torch.kernels.segment_agg import ops as sa_ops
+    from repro_torch.kernels.segment_agg import segment_agg as sa
+
+    def cuda(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    def multi_inputs(dtype):
+        def make(seed):
+            rng = np.random.default_rng(seed)
+            bh, bl, bv = (
+                cuda(rng.integers(0, 1 << 14, 3072).astype(np.int32)),
+                cuda(rng.integers(-(1 << 14), 1 << 14, 3072)
+                     .astype(np.int32)),
+                cuda(rng.normal(size=3072).astype(np.float32)))
+            rh, rl, rv = (cuda(x) for x in _canonical_segment(
+                rng, 16384, 1 << 14, np.float32, "plus.times"))
+            return bh, bl, bv.to(dtype), [(rh, rl, rv.to(dtype))]
+        return make
+
+    def pair_inputs(seed):
+        rng = np.random.default_rng(seed)
+        return tuple(cuda(x) for cap in (19456, 13312)
+                     for x in _canonical_segment(rng, cap, 1 << 14,
+                                                 np.float32, "plus.times"))
+
+    def multi(fn):
+        return lambda bh, bl, bv, runs: fn((bh, bl, bv), runs,
+                                           sr_name="plus.times")
+
+    def bag_inputs(seed):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        table = torch.randn((DCN_TABLE_ROWS, 16), generator=gen,
+                            device=device)
+        idx = torch.randint(0, DCN_TABLE_ROWS, (SERVE_BULK_BAGS, 1),
+                            generator=gen, device=device, dtype=torch.int32)
+        return table, idx, torch.ones(idx.shape, device=device)
+
+    def graph_inputs(dst, n, d):
+        def make(seed):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            ids = torch.as_tensor(np.asarray(dst), device=device)
+            order, seg, starts, tiles = sa_ops.stage(ids, num_segments=n)
+            msg = torch.randn((ids.shape[0], d), generator=gen,
+                              device=device)
+            return msg, seg, starts, order, tiles
+        return make
+
+    def seg(fn):
+        return lambda msg, s, starts, order, tiles: fn(
+            msg, s, starts, tiles, tn=sa_ops.TN, order=order)
+
+    mesh = graphs.icosahedral_multimesh(6)
+    cora = graphs.random_graph(6, 2708, 10556, 1433, 7, device=device)
+    out = [
+        KernelJob("hier_merge.merge_multi_cuda/main.3072+16384",
+                  "hier_merge", multi(hm.merge_multi_cuda),
+                  multi(hm.merge_multi_plain), multi_inputs(torch.float32),
+                  multi(hm.merge_multi_plain), "hier_merge.merge_multi",
+                  1e-4, multi(hm.merge_multi_launch_config)),
+        # 16-bit adds may round in another order than the plain version's
+        KernelJob("hier_merge.merge_multi_cuda/main.3072+16384.bfloat16",
+                  "hier_merge", multi(hm.merge_multi_cuda),
+                  multi(hm.merge_multi_plain), multi_inputs(torch.bfloat16),
+                  multi(hm.merge_multi_plain), "hier_merge.merge_multi",
+                  1e-2, multi(hm.merge_multi_launch_config)),
+        KernelJob("hier_merge.merge_cuda/main.19456+13312", "hier_merge",
+                  hm.merge_cuda, hm.merge_plain, pair_inputs,
+                  hm.merge_plain, "hier_merge.merge", 1e-4,
+                  hm.merge_launch_config),
+        KernelJob("embedding_bag.embedding_bag_cuda/main.serve_bulk",
+                  "embedding_bag", eb.embedding_bag_cuda,
+                  eb.embedding_bag_plain, bag_inputs, eb.embedding_bag_plain,
+                  eb.COUNTER, 2e-5, eb.embedding_bag_launch_config),
+    ]
+    for label, dst, n, d in (
+            ("graphcast_r6", mesh[2], len(mesh[0]), GRAPHCAST_D),
+            ("gat_cora", cora["edge_dst"].cpu().numpy(), 2708, GAT_D)):
+        out.append(KernelJob(
+            f"segment_agg.segment_sum_cuda/main.{label}", "segment_agg",
+            seg(sa.segment_sum_cuda), seg(sa.segment_sum_plain),
+            graph_inputs(dst, n, d), seg(sa.segment_sum_plain), sa.COUNTER,
+            2e-5, seg(sa.segment_sum_launch_config)))
     return tuple(out)

@@ -69,7 +69,24 @@
 
 #include <cstdint>
 
+#include "../../analysis.cuh"
+
 namespace {
+
+using repro_analysis::kBounds;
+using repro_analysis::kSync;
+
+// The checked build: an index into seg / order / the message rows within
+// the edges the call was told of (P_check_extent; 0: unknown).
+__device__ __forceinline__ bool in_edges(long long e) {
+#ifdef REPRO_KERNEL_CHECKS
+  const long long n = repro_analysis::g_extent;
+  return e >= 0 && (n <= 0 || e < n);
+#else
+  (void)e;
+  return true;
+#endif
+}
 
 constexpr int kWarps = 4;                 // warps (chunks) per CTA
 constexpr int kChunk = 64;                // sorted edges per warp: must
@@ -118,6 +135,7 @@ struct Range {
   __device__ Range(const int* tile_starts, int num_tiles, int c) {
     lo = tile_starts[0];
     hi = tile_starts[num_tiles];
+    KCHECK(lo >= 0 && lo <= hi && (hi == 0 || in_edges(hi - 1)), kBounds);
     const long long c0 = static_cast<long long>(c) * kChunk;
     a = static_cast<int>(c0 > lo ? c0 : lo);
     b = static_cast<int>(c0 + kChunk < hi ? c0 + kChunk : hi);
@@ -197,6 +215,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // from global to shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
+  KCHECK(bytes % 16 == 0 && (smem_u32(dst) & 15) == 0 &&
+             (reinterpret_cast<uintptr_t>(src) & 15) == 0,
+         kSync);
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
           smem_u32(bar)),
@@ -210,6 +231,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+#ifdef REPRO_KERNEL_CHECKS
+  // bounded: a phase that never completes is counted, not waited on
+  uint32_t done = 0;
+  for (long long spin = 0; !done && spin < repro_analysis::kSpinLimit;
+       ++spin) {
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+  KCHECK(done, kSync);
+  return;
+#endif
   asm volatile(
       "{\n.reg .pred P1;\nLAB_WAIT:\n"
       "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
@@ -242,6 +279,14 @@ ring_kernel(const float* __restrict__ msg, const int* __restrict__ order,
     return;
   }
   const int width = d < kSlice ? d : kSlice;
+  CHECKED_ONLY(uint32_t dyn; asm("mov.u32 %0, %%dynamic_smem_size;"
+                                 : "=r"(dyn));
+               KCHECK(stages >= 1 && stages <= kMaxStages &&
+                          8ull * kMaxStages * kWarps +
+                                  4ull * kWarps * stages * width <=
+                              dyn,
+                      kBounds);
+               long long started = 0;)
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + w * kMaxStages;
   float* ring = reinterpret_cast<float*>(smem + 8 * kMaxStages * kWarps) +
                 static_cast<long long>(w) * stages * width;
@@ -272,13 +317,17 @@ ring_kernel(const float* __restrict__ msg, const int* __restrict__ order,
       nxt_id = __ldg(seg + r.a + 32 + lane);
       nxt_row = order ? __ldg(order + r.a + 32 + lane) : r.a + 32 + lane;
     }
+    KCHECK(__activemask() == kFull, kSync);
     for (int i = 0; i < stages && i < ne; ++i) {
       const int row = __shfl_sync(kFull, cur_row, i);
       const int st = (q0 + i) % stages;
-      if (lane == 0)
+      if (lane == 0) {
+        KCHECK(in_edges(row), kBounds);
         bulk_load(ring + st * width, msg + static_cast<long long>(row) * d +
                                          col0,
                   bytes, bar + st);
+        CHECKED_ONLY(++started;)
+      }
     }
     zero_rows<4, V>(out, runs.prev, runs.first, n_out, col0, d, lane);
     typename L::T acc[V];
@@ -311,10 +360,13 @@ ring_kernel(const float* __restrict__ msg, const int* __restrict__ order,
       const int next = i + stages;
       const int row = __shfl_sync(
           kFull, (next >> 5) == (i >> 5) ? cur_row : nxt_row, next & 31);
-      if (lane == 0 && next < ne)
+      if (lane == 0 && next < ne) {
+        KCHECK(in_edges(row), kBounds);
         bulk_load(ring + st * width, msg + static_cast<long long>(row) * d +
                                          col0,
                   bytes, bar + st);
+        CHECKED_ONLY(++started;)
+      }
       const int id = __shfl_sync(kFull, cur_id, i & 31);
       if (id != cur) {           // a run ends inside the chunk
         float* dst = run_dst(out, head, tail, cur, first_run,
@@ -335,6 +387,8 @@ ring_kernel(const float* __restrict__ msg, const int* __restrict__ order,
     if (r.b == r.hi) zero_rows<4, V>(out, cur, n_out, n_out, col0, d, lane);
     q0 += ne;
   }
+  // every copy started was waited: none is in flight when the CTA exits
+  if (lane == 0) KCHECK(started == q0, kSync);
 }
 
 // Launch 1 for any other D or alignment: scalar ld.global.nc loads, V
@@ -376,6 +430,7 @@ rows_kernel(const float* __restrict__ msg, const int* __restrict__ order,
 #pragma unroll
         for (int k = 0; k < U; ++k) {
           const int row = __shfl_sync(kFull, my_row, u0 + k);
+          if (u0 + k < n) KCHECK(in_edges(row), kBounds);
           const float* src = msg + static_cast<long long>(row) * d + col0;
 #pragma unroll
           for (int j = 0; j < V; ++j) {
@@ -442,6 +497,7 @@ carry_kernel(const int* __restrict__ seg, const int* __restrict__ tile_starts,
       break;
     }
   }
+  KCHECK(c_end > c && c_end < num_chunks, kBounds);
   float* orow = out + static_cast<long long>(node) * d;
   for (int col0 = 0; col0 < d; col0 += 32 * V * W) {
     T acc[V];
@@ -474,6 +530,19 @@ carry_kernel(const int* __restrict__ seg, const int* __restrict__ tile_starts,
   }
 }
 
+#define SA_K(...) {reinterpret_cast<const void*>(&__VA_ARGS__), #__VA_ARGS__}
+const repro_analysis::KernelEntry kKernels[] = {
+    SA_K(ring_kernel<1>),     SA_K(ring_kernel<2>),
+    SA_K(ring_kernel<4>),     SA_K(rows_kernel<1>),
+    SA_K(rows_kernel<2>),     SA_K(rows_kernel<4>),
+    SA_K(carry_kernel<4, 1>), SA_K(carry_kernel<4, 2>),
+    SA_K(carry_kernel<4, 4>), SA_K(carry_kernel<1, 1>),
+    SA_K(carry_kernel<1, 2>), SA_K(carry_kernel<1, 4>),
+};
+#undef SA_K
+
+using repro_analysis::LaunchLog;
+
 struct Args {
   const float* msg;
   const int* order;
@@ -485,13 +554,21 @@ struct Args {
 };
 
 template <int V>
-cudaError_t launch_ring(const Args& a, cudaStream_t s) {
+cudaError_t launch_ring(const Args& a, cudaStream_t s, LaunchLog* log) {
   const int blocks = (a.num_chunks + kWarps - 1) / kWarps;
   const int width = a.d < kSlice ? a.d : kSlice;
   int stages = kRingBytes / (4 * width);
   stages = stages < 2 ? 2 : stages > kMaxStages ? kMaxStages : stages;
   const size_t smem = 8 * kMaxStages * kWarps +
                       static_cast<size_t>(kWarps) * stages * width * 4;
+  if (repro_analysis::dry_run(
+          log, kKernels, reinterpret_cast<const void*>(&ring_kernel<V>),
+          blocks, kThreads, smem)) {
+    repro_analysis::dry_run(
+        log, kKernels, reinterpret_cast<const void*>(&carry_kernel<4, V>),
+        blocks, kThreads, 0);
+    return cudaSuccess;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       ring_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -507,8 +584,16 @@ cudaError_t launch_ring(const Args& a, cudaStream_t s) {
 }
 
 template <int V>
-cudaError_t launch_rows(const Args& a, cudaStream_t s) {
+cudaError_t launch_rows(const Args& a, cudaStream_t s, LaunchLog* log) {
   const int blocks = (a.num_chunks + kWarps - 1) / kWarps;
+  if (repro_analysis::dry_run(
+          log, kKernels, reinterpret_cast<const void*>(&rows_kernel<V>),
+          blocks, kThreads, 0)) {
+    repro_analysis::dry_run(
+        log, kKernels, reinterpret_cast<const void*>(&carry_kernel<1, V>),
+        blocks, kThreads, 0);
+    return cudaSuccess;
+  }
   rows_kernel<V><<<blocks, kThreads, 0, s>>>(
       a.msg, a.order, a.seg, a.ts, a.out, a.partial, a.num_tiles, a.n_out,
       a.d, a.num_chunks);
@@ -519,9 +604,59 @@ cudaError_t launch_rows(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The shared host routine of sa_segment_sum; with a log it launches
+// nothing and records the launches it would make (sa_launch_config).
+int run_segment(const Args& a, int tn, int vec, cudaStream_t s,
+                LaunchLog* log) {
+  if (a.num_tiles < 0 || tn <= 0 || a.d < 0 || a.num_chunks <= 0 ||
+      (vec && a.d % 4 != 0))
+    return cudaErrorInvalidValue;
+  if (a.n_out == 0 || a.d == 0) return cudaSuccess;
+  if (!log) {  // the checked build's poison and extent (no-ops otherwise)
+    cudaError_t e = repro_analysis::poison(
+        a.out, static_cast<size_t>(a.n_out) * a.d * sizeof(float), s);
+    if (e == cudaSuccess)
+      e = repro_analysis::poison(
+          a.partial, static_cast<size_t>(a.num_chunks) * 2 * a.d *
+                         sizeof(float), s);
+    if (e == cudaSuccess) e = repro_analysis::push_extent(s);
+    if (e != cudaSuccess) return e;
+  }
+  // V: float4 (ring) or floats (scalar) per lane per pass, 1, 2 or 4
+  const int per = vec ? 128 : 32;
+  const int v = a.d <= per ? 1 : a.d <= 2 * per ? 2 : 4;
+  cudaError_t err;
+  if (vec)
+    err = v == 1 ? launch_ring<1>(a, s, log)
+                 : v == 2 ? launch_ring<2>(a, s, log)
+                          : launch_ring<4>(a, s, log);
+  else
+    err = v == 1 ? launch_rows<1>(a, s, log)
+                 : v == 2 ? launch_rows<2>(a, s, log)
+                          : launch_rows<4>(a, s, log);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
+REPRO_ANALYSIS_EXPORTS(sa, kKernels)
+
 extern "C" {
+
+// The launches one call makes for rows of d floats over num_chunks chunks
+// (num_tiles * tn output rows), without launching (see hm_launch_config):
+// 4 ints a launch in rows, at most cap; returns the count or minus a
+// cudaError_t.
+int sa_launch_config(int num_tiles, int tn, int d, int num_chunks, int vec,
+                     int* rows, int cap) {
+  const long long n_out = static_cast<long long>(num_tiles) * tn;
+  if (n_out > 0x7fffffffLL) return -cudaErrorInvalidValue;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               num_tiles, static_cast<int>(n_out), d, num_chunks};
+  LaunchLog log{rows, cap, 0};
+  const int e = run_segment(a, tn, vec, nullptr, &log);
+  return e != 0 ? -e : log.n;
+}
 
 const char* sa_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
@@ -536,29 +671,15 @@ const char* sa_error_string(int e) {
 int sa_segment_sum(void* msg, void* order, void* seg, void* tile_starts,
                    void* out, void* partial, int num_tiles, int tn, int d,
                    int num_chunks, int vec, void* stream) {
-  if (num_tiles < 0 || tn <= 0 || d < 0 || num_chunks <= 0 ||
-      (vec && d % 4 != 0))
-    return cudaErrorInvalidValue;
+  if (num_tiles < 0 || tn <= 0) return cudaErrorInvalidValue;
   const long long n_out = static_cast<long long>(num_tiles) * tn;
   if (n_out > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (n_out == 0 || d == 0) return cudaSuccess;
   const Args a{static_cast<const float*>(msg), static_cast<const int*>(order),
                static_cast<const int*>(seg),
                static_cast<const int*>(tile_starts), static_cast<float*>(out),
                static_cast<float*>(partial), num_tiles,
                static_cast<int>(n_out), d, num_chunks};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // V: float4 (ring) or floats (scalar) per lane per pass, 1, 2 or 4
-  const int per = vec ? 128 : 32;
-  const int v = d <= per ? 1 : d <= 2 * per ? 2 : 4;
-  cudaError_t err;
-  if (vec)
-    err = v == 1 ? launch_ring<1>(a, s)
-                 : v == 2 ? launch_ring<2>(a, s) : launch_ring<4>(a, s);
-  else
-    err = v == 1 ? launch_rows<1>(a, s)
-                 : v == 2 ? launch_rows<2>(a, s) : launch_rows<4>(a, s);
-  return static_cast<int>(err);
+  return run_segment(a, tn, vec, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 }  // extern "C"

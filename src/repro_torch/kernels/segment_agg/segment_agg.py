@@ -103,6 +103,9 @@ def _lib():
         lib.sa_segment_sum.restype = ctypes.c_int
         lib.sa_error_string.argtypes = [ctypes.c_int]
         lib.sa_error_string.restype = ctypes.c_char_p
+        lib.sa_launch_config.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.sa_launch_config.restype = ctypes.c_int
         _BOUND["lib"] = lib
     return _BOUND["lib"]
 
@@ -130,6 +133,31 @@ def _check(messages, seg_ids, tile_starts, num_tiles, order):
             f"{None if order is None else (order.dtype, tuple(order.shape))}")
 
 
+def vector_path(messages) -> int:
+    """1 for the ring kernel (float4 rows by bulk copy): D % 4 == 0 and
+    the messages 16-byte aligned; else the scalar kernel."""
+    return int(messages.shape[1] % 4 == 0 and messages.data_ptr() % 16 == 0)
+
+
+def _chunks(seg_ids) -> int:
+    return max(1, -(-seg_ids.shape[0] // CHUNK))
+
+
+def segment_sum_launch_config(messages, seg_ids, tile_starts,
+                              num_tiles: int, *, tn: int = 128,
+                              order=None) -> list:
+    """``segment_sum_cuda``'s launches for these operands, as the C side
+    decides them (``sa_launch_config``)."""
+    num_tiles = int(num_tiles)
+    _check(messages, seg_ids, tile_starts, num_tiles, order)
+    lib = _lib()
+    rows = (ctypes.c_int * (4 * build.MAX_LAUNCHES))()
+    n = lib.sa_launch_config(num_tiles, tn, messages.shape[1],
+                             _chunks(seg_ids), vector_path(messages), rows,
+                             build.MAX_LAUNCHES)
+    return build.launch_rows("sa", n, rows)
+
+
 def segment_sum_cuda(messages, seg_ids, tile_starts, num_tiles: int, *,
                      tn: int = 128, order=None):
     """Sorted segment sum over node tiles of ``tn``; returns
@@ -148,10 +176,10 @@ def segment_sum_cuda(messages, seg_ids, tile_starts, num_tiles: int, *,
                       device=messages.device)
     if num_tiles == 0 or d == 0:
         return out
-    chunks = max(1, -(-seg_ids.shape[0] // CHUNK))
+    chunks = _chunks(seg_ids)
     partial = torch.empty((chunks, 2, d), dtype=torch.float32,
                           device=messages.device)
-    vec = int(d % 4 == 0 and messages.data_ptr() % 16 == 0)
+    vec = vector_path(messages)
     lib = _lib()
     with torch.cuda.device(messages.device):
         stream = torch.cuda.current_stream(messages.device).cuda_stream
@@ -162,5 +190,9 @@ def segment_sum_cuda(messages, seg_ids, tile_starts, num_tiles: int, *,
     if err != 0:
         raise RuntimeError(f"segment_sum_cuda: CUDA launch failed with error "
                            f"{err} ({lib.sa_error_string(err).decode()})")
-    registry.count(COUNTER)
+    # each message row and id read once (and its order), each output row
+    # written once
+    e = seg_ids.shape[0]
+    registry.count(COUNTER, e * (4 * d + 4) + (0 if order is None else 4 * e)
+                   + 4 * num_tiles * tn * d)
     return out

@@ -80,6 +80,7 @@ def row_occupancy(h, num_rows: int) -> Tensor:
     return total
 
 
+# tracekit: allow(J005) entry=service.analytics the rank key: score, index
 def _order_key(score: Tensor) -> Tensor:
     """int64 key whose order is the total order of ``score`` (float32 by
     its bits, so -0.0 < 0.0 as in ``lax.top_k``; int32 as is) in the high

@@ -417,10 +417,10 @@ def _range_total(h, row_lo, row_hi, sr: Semiring, use_kernel: bool,
     for seg in runs:
         if sr.name == "plus.times":
             # canonical sentinel slots hold the zero value: cumsum is safe
+            # reprolint: allow(R005) canonical runs; layer 0 by _live below
+            csum = torch.cumsum(seg.val, -1, dtype=seg.dtype)
             prefix = torch.cat([torch.zeros(lead + (1,), dtype=seg.dtype,
-                                            device=h.device),
-                                torch.cumsum(seg.val, -1, dtype=seg.dtype)],
-                               -1)
+                                            device=h.device), csum], -1)
             keys = assoc.pack_key(seg.hi, seg.lo)
             zeros = torch.zeros_like(row_lo)
             s = _lower_bound(keys, assoc.pack_key(row_lo, zeros))

@@ -55,9 +55,24 @@ there and ``disk_hits`` the ones reused.
 
 ``precompile_fleet(cfg)`` makes a config's whole dispatch set
 (``fleet_jobs``) up front, so a later ``launch/ingest`` + ``launch/query``
-run adds no compile.  Not ported (tooling, later): ``cost_of``,
-``compiled_for``, ``audit``, ``abstract_args`` and the ``Compiled``
-introspection (``as_text``, ``cost_analysis``, ``memory_analysis``).
+run adds no compile.
+
+**Introspection**, under the reference's names.  An eager program has no
+compiled module to read, so a ``Compiled`` answers from a RECORDED call
+(``analysis/tracekit.py``: every aten op with its dtypes and shapes, the
+host reads, the kernel launches a wrapper reported):
+``Compiled.cost_analysis()`` (``"flops"``, ``"bytes accessed"``, per
+call), ``as_text()`` (one aten op a line; for a ``"graph"`` entry also the
+kernels a replay launches) and ``memory_analysis()`` (the reference's
+attribute names; ``generated_code_size_in_bytes`` is the size of the
+kernel libraries loaded).  ``cost_of(wrapped, *args)`` records one call on
+clones of the tensor arguments, so an in-place entry leaves the caller's
+state as it was; ``compiled_for`` returns the ``Compiled`` behind one
+dispatch; ``abstract_args(key)`` rebuilds the ``Abstract`` argument tree
+from a cache key; ``audit(cfg)`` runs ``tracekit.audit_fleet``.  A
+``Compiled`` asked before anything was recorded records one call on zero
+tensors of its key's shapes (the counterpart of the reference's
+re-lowering from abstract avals): the shapes are right, the data is not.
 """
 from __future__ import annotations
 
@@ -88,6 +103,7 @@ _ENTRY_STATS: dict = {}    # entry -> dict(dispatches=int, wall_s=float)
 _DIGESTS: dict = {}        # full key -> short signature digest (hook only)
 _CACHE_DIR: Optional[str] = None
 _SIDE_STREAMS: dict = {}   # device index -> warm-up / capture stream
+_TYPES: dict = {}          # dataclass name -> type (abstract_args)
 
 # obs.trace installs a per-dispatch hook and an optional annotation class
 # (``torch.profiler.record_function``) here; both are host-side and the
@@ -337,8 +353,10 @@ def _flatten(x, leaves: list):
     kids = _children(x)
     if kids is None:
         return ("=", _freeze(x))
-    return (type(x).__name__,) + tuple((k, _flatten(c, leaves))
-                                       for k, c in kids)
+    name = type(x).__name__
+    if name not in _TYPES and dataclasses.is_dataclass(x):
+        _TYPES[name] = type(x)
+    return (name,) + tuple((k, _flatten(c, leaves)) for k, c in kids)
 
 
 def tree_leaves(x) -> list:
@@ -356,6 +374,63 @@ def _args_key(args):
     leaves = []
     treedef = _flatten(args, leaves)
     return treedef, tuple(_leaf_key(l) for l in leaves)
+
+
+def _thaw(x):
+    """Inverse of ``_freeze`` for the containers it tags."""
+    if isinstance(x, tuple) and x and x[0] == "seq":
+        return tuple(_thaw(v) for v in x[1:])
+    if isinstance(x, tuple) and x and x[0] == "dict":
+        return {k: _thaw(v) for k, v in x[1:]}
+    return x
+
+
+def _unflatten(treedef, leaves):
+    """Inverse of ``_flatten``: dataclasses come back as their type (by
+    name, from the types seen while keying), tuples and lists as tuples,
+    dicts and modules as dicts."""
+    if treedef == "*":
+        return next(leaves)
+    if treedef[0] == "=":
+        return _thaw(treedef[1])
+    name, kids = treedef[0], treedef[1:]
+    vals = [(k, _unflatten(c, leaves)) for k, c in kids]
+    cls = _TYPES.get(name)
+    if cls is not None:
+        obj = cls.__new__(cls)
+        for k, v in vals:
+            object.__setattr__(obj, k, v)
+        return obj
+    if name in ("tuple", "list", "ModuleList"):
+        return tuple(v for _, v in vals)
+    return dict(vals)
+
+
+def abstract_args(key) -> tuple:
+    """Rebuild the abstract argument tree a cache key was lowered under:
+    every tensor leaf an ``Abstract`` of its (shape, dtype, device)."""
+    treedef, avals = key[4], key[5]
+    leaves = iter(Abstract(shape, getattr(torch, dtype), device)
+                  for shape, dtype, device in avals)
+    return _unflatten(treedef, leaves)
+
+
+def materialize(tree):
+    """``tree`` with every ``Abstract`` leaf replaced by a zero tensor of
+    its shape, dtype and device."""
+    if isinstance(tree, Abstract):
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=tree.device)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(materialize(c) for c in tree)
+    if isinstance(tree, dict):
+        return {k: materialize(v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        obj = type(tree).__new__(type(tree))
+        for f in dataclasses.fields(tree):
+            object.__setattr__(obj, f.name, materialize(getattr(tree,
+                                                                f.name)))
+        return obj
+    return tree
 
 
 def abstract(tree, device):
@@ -479,6 +554,7 @@ class Compiled:
         self.launches = {}          # kernel launches a replay makes
         self.replays = 0
         self.replay_sync_mode = None    # sync debug mode inside a replay
+        self.recorded = None        # tracekit.Trace of a recorded call
         self._warm = False
         self._graph = None
         self._static = None
@@ -555,6 +631,59 @@ class Compiled:
         next dispatch warms up and captures again."""
         self._warm = False
         self._graph = self._static = self._out = None
+
+    # ------------------------------------------------------ introspection --
+
+    def _trace(self):
+        if self.recorded is None:
+            from repro_torch.analysis import tracekit
+            tracekit.record_compiled(self,
+                                     materialize(abstract_args(self.key)))
+        return self.recorded
+
+    def cost_analysis(self) -> dict:
+        """The recorded call's cost under the reference's keys:
+        ``"flops"`` (matrix-class ops, ``FlopCounterMode``), ``"bytes
+        accessed"`` (each op's tensor inputs read and outputs written
+        once, plus the bytes the kernel wrappers report) and ``"peak
+        bytes"``, per call."""
+        return self._trace().cost_dict()
+
+    def as_text(self) -> str:
+        """The recorded call as text: one aten op a line with its dtypes
+        and shapes, then the kernel launches and host reads; a
+        ``"graph"`` entry adds the kernels a replay launches."""
+        head = f"# entry {self.key[0]} kind {self.kind}"
+        text = "\n".join([head, self._trace().as_text()])
+        if self.kind == "graph":
+            text += "\n# replay launches " + repr(dict(self.launches))
+        return text
+
+    def memory_analysis(self) -> "MemoryAnalysis":
+        """Bytes of the recorded call under the reference's attribute
+        names; ``generated_code_size_in_bytes`` is the size of the kernel
+        libraries loaded (0 on the CPU)."""
+        from repro_torch.kernels import build
+        t = self._trace()
+        code = sum(build.library_path(src).stat().st_size
+                   for src in build.loaded_sources()
+                   if build.library_path(src).exists())
+        return MemoryAnalysis(
+            argument_size_in_bytes=t.arg_bytes,
+            output_size_in_bytes=t.out_bytes,
+            temp_size_in_bytes=t.per_call()["peak_bytes"],
+            alias_size_in_bytes=t.alias_bytes,
+            generated_code_size_in_bytes=code)
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryAnalysis:
+    """``Compiled.memory_analysis()``: the reference's attribute names."""
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: int
+    alias_size_in_bytes: int
+    generated_code_size_in_bytes: int
 
 
 class Lowered:
@@ -763,6 +892,36 @@ def lowered_keys() -> Tuple:
     """Snapshot of every cache key lowered so far this process."""
     with _LOCK:
         return tuple(_LOWERED.keys())
+
+
+def compiled_for(wrapped: Wrapped, *args) -> Compiled:
+    """The ``Compiled`` behind one (wrapped, args) dispatch: the cached
+    one, else lowered and compiled now."""
+    comp = wrapped.compiled(*args)
+    return comp if comp is not None else wrapped.lower(*args).compile()
+
+
+def cost_of(wrapped: Wrapped, *args) -> dict:
+    """Cost columns of one dispatch — ``flops``, ``bytes_accessed`` and
+    ``peak_bytes`` — from one recorded call on clones of the tensor
+    arguments (``Abstract`` leaves become zeros), so an entry that
+    updates its state in place leaves the caller's state unchanged."""
+    from repro_torch.analysis import tracekit
+    comp = compiled_for(wrapped, *args)
+    tracekit.record_compiled(comp, materialize(args))
+    cost = comp.cost_analysis()
+    return dict(flops=cost.get("flops"),
+                bytes_accessed=cost.get("bytes accessed"),
+                peak_bytes=comp.memory_analysis().temp_size_in_bytes)
+
+
+def audit(cfg=None, **kw):
+    """The ``stages``-side front door to ``analysis.tracekit``: audit a
+    config's (or a ``Signature``'s) fleet dispatch set
+    (``tracekit.audit_fleet``); imported lazily so ``stages`` never
+    depends on the analysis package."""
+    from repro_torch.analysis import tracekit
+    return tracekit.audit_fleet(cfg, **kw)
 
 
 # ------------------------------------------------------- fleet precompile ---

@@ -285,3 +285,20 @@ def test_stages_phase_on_cpu(tmp_path):
     assert all(r["bit_equal"] for r in res["train_smoke_bits"].values())
     assert "capture_refused" not in res                   # the card only
     assert res["stats"]["captures"] == 0
+
+
+def test_analysis_phase_on_cpu(tmp_path):
+    """Phase 16 rehearsed on the CPU: palkit exits 2 without a card (no
+    rule skipped, nothing run), tracekit over the smoke config's fleet
+    entries with the kernel route is clean and the graph entry reads no
+    host."""
+    res = chip_smoke.analysis_phase(torch, "cpu", "cpu", str(tmp_path),
+                                    smoke=True)
+    assert res["palkit"] is None and res["report"] is None
+    tk = res["tracekit"]
+    assert tk["fresh"] == 0 and tk["allowed"] == tk["violations"] > 0
+    assert tk["entries"]["service.point_query"]["host_reads_per_call"] == 0
+    assert tk["entries"]["service.ingest"]["host_reads_per_call"] > 0
+    assert set(tk["entries"]) >= {"stream.ingest_instances",
+                                  "service.ingest", "service.point_query",
+                                  "hier.update", "hier.flush"}

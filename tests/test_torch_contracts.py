@@ -1,6 +1,12 @@
 """Port parity: ``repro_torch.analysis.contracts`` against
 ``repro.analysis.contracts``.
 
+A ``HierVec`` training state (``dcn.hier_embed_init``) restores under
+``REPRO_CHECK=1``, checked by its own contract, and each clause of that
+contract seeded into a saved state is refused — held against a dict-based
+check of the saved arrays, not against the reference, whose duck typing
+takes a ``HierVec`` for a ``HierAssoc``.
+
 Each violation that the reference's ``tests/test_contracts.py`` seeds
 (a dirty sentinel tail, an unsorted prefix, a SENTINEL key in the prefix,
 the nnz bound, the counter's carry and consistency, the spill-plan bound)
@@ -361,3 +367,116 @@ def test_restore_migrated_leaf_validated(tmp_path, monkeypatch):
         with pytest.raises(tcon.ContractViolation,
                            match="counter carry violation"):
             tckpt.restore(str(tmp_path), 3, bad_tmpl)
+
+
+# ------------------------------------------- a HierVec restored (REPRO_CHECK) --
+
+VEC_CLAUSES = {
+    "nnz": "nnz bound violation",
+    "tail": "sentinel-tail violation",
+    "padding": "padding violation",
+    "sentinel": "SENTINEL key inside the live prefix",
+    "order": "not sorted-unique",
+}
+
+
+def _vec_contract(d) -> list:
+    """The clauses of ``core/vassoc.py``'s contract one layer breaks,
+    checked on a dict of its numpy arrays apart from the port's code:
+    nnz in [0, C], SENTINEL keys and zero payload rows in [nnz, C), no
+    SENTINEL key and strictly increasing keys in [0, nnz)."""
+    key, val, nnz = d["key"], d["val"], int(d["nnz"])
+    bad = []
+    if not 0 <= nnz <= key.shape[0]:
+        bad.append("nnz")
+        nnz = min(max(nnz, 0), key.shape[0])
+    if (key[nnz:] != tassoc.SENTINEL).any():
+        bad.append("tail")
+    if (val[nnz:] != 0).any():
+        bad.append("padding")
+    if (key[:nnz] == tassoc.SENTINEL).any():
+        bad.append("sentinel")
+    if (np.diff(key[:nnz].astype(np.int64)) <= 0).any():
+        bad.append("order")
+    return bad
+
+
+def _hier_embed_state():
+    """DCN-v2's smoke config, its hier embedding state after enough
+    gradient blocks that every layer holds entries."""
+    from repro_torch.configs import registry as tcfg
+    from repro_torch.core import vassoc
+    from repro_torch.models import dcn as tdcn
+    cfg = tcfg.get_smoke_config("dcn-v2")
+    state = tdcn.hier_embed_init(cfg, 2, (16, 64, 256), device="cpu")
+    h = state.hier
+    block = h.layers[0].capacity - h.cuts[0]
+    rng = np.random.default_rng(0)
+    for _ in range(11):          # layers end at nnz 12, 46 and 67
+        keys = torch.as_tensor(rng.integers(0, 400, block).astype(np.int32))
+        vals = torch.as_tensor(rng.normal(size=(block, cfg.embed_dim))
+                               .astype(np.float32))
+        h = vassoc.update(h, keys, vals)
+    assert all(int(l.nnz) > 1 for l in h.layers)
+    return dataclasses.replace(state, hier=h)
+
+
+def _layers_np(h):
+    return [dict(key=l.key.numpy(), val=l.val.numpy(), nnz=l.nnz.numpy())
+            for l in h.layers]
+
+
+def test_restore_hier_embed_state_under_check(tmp_path, monkeypatch):
+    """A training state with a ``HierVec`` restores under REPRO_CHECK=1
+    (the reference's duck typing took it for a HierAssoc), every leaf
+    equal, and the dict-based check agrees that each layer is clean."""
+    tree = dict(hier=_hier_embed_state())
+    assert all(_vec_contract(d) == [] for d in _layers_np(tree["hier"].hier))
+    tckpt.save(str(tmp_path), 1, tree)
+    monkeypatch.setenv("REPRO_CHECK", "1")
+    out = tckpt.restore(str(tmp_path), 1, tree)
+    for a, b in zip(out["hier"].hier.layers, tree["hier"].hier.layers):
+        assert torch.equal(a.key, b.key) and torch.equal(a.val, b.val)
+        assert torch.equal(a.nnz, b.nnz)
+    tcon.validate_restored(out)
+
+
+def _seed_vec(seg, clause):
+    key, val, nnz = seg.key.clone(), seg.val.clone(), seg.nnz.clone()
+    n = int(nnz)
+    if clause == "nnz":
+        nnz = torch.tensor(key.shape[0] + 1, dtype=torch.int32)
+    elif clause == "tail":
+        key[n] = 5
+    elif clause == "padding":
+        val[n, 0] = 1.0
+    elif clause == "sentinel":
+        key[n - 1] = tassoc.SENTINEL
+    else:
+        key[[0, 1]] = key[[1, 0]]
+    return dataclasses.replace(seg, key=key, val=val, nnz=nnz)
+
+
+@pytest.mark.parametrize("clause", sorted(VEC_CLAUSES))
+def test_seeded_hiervec_violation_is_refused(clause, tmp_path, monkeypatch):
+    """Each clause of the HierVec contract, broken in one layer of a saved
+    training state, refuses the checked restore by name; the dict-based
+    check names the same clause."""
+    state = _hier_embed_state()
+    h = state.hier
+    layers = list(h.layers)
+    layers[1] = _seed_vec(layers[1], clause)
+    bad = dict(hier=dataclasses.replace(
+        state, hier=dataclasses.replace(h, layers=tuple(layers))))
+    assert clause in _vec_contract(_layers_np(bad["hier"].hier)[1])
+    tckpt.save(str(tmp_path), 2, bad)
+    monkeypatch.setenv("REPRO_CHECK", "1")
+    with pytest.raises(tcon.ContractViolation,
+                       match=VEC_CLAUSES[clause]) as err:
+        tckpt.restore(str(tmp_path), 2, dict(hier=state))
+    assert "restore step_2.hier.hier layer 1" in str(err.value)
+    with pytest.raises(tcon.ContractViolation, match=VEC_CLAUSES[clause]):
+        tcon.validate_restored(bad)
+    with pytest.raises(tcon.ContractViolation,
+                       match=r"hiervec layer 1"):
+        tcon.check_hiervec(bad["hier"].hier)

@@ -348,3 +348,47 @@ def test_stages_front_door_imports_no_jax(monkeypatch):
         stages.fleet_jobs(d4m_stream.smoke_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.run(serve.make_args(arch="smollm-360m", smoke=True))
+
+
+def test_lint_and_baseline_import_with_torch_and_jax_blocked():
+    """The analysis layer's source lint and its baseline machinery run
+    without the accelerator stack: in a fresh process with ``torch``,
+    ``jax`` and ``numpy`` blocked, ``repro_torch.analysis.lint`` and
+    ``baseline`` import, lint a seeded capture and the port's own tree
+    (clean); the analysis package imports neither ``tracekit``,
+    ``palkit`` nor ``contracts``."""
+    code = ("import sys\n"
+            "for m in ('torch', 'jax', 'jaxlib', 'numpy'):\n"
+            "    sys.modules[m] = None\n"
+            "from repro_torch.analysis import baseline, lint\n"
+            "vs = lint.lint_source('import torch\\nf = torch.compile(g)')\n"
+            "assert [v.rule for v in vs] == ['R001'], vs\n"
+            f"assert lint.main([{str(PORT)!r}, '-q']) == 0\n"
+            "loaded = [m for m in sys.modules if m.startswith("
+            "'repro_torch.analysis.')]\n"
+            "assert sorted(loaded) == ['repro_torch.analysis.baseline', "
+            "'repro_torch.analysis.lint'], loaded\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_analysis_modules_import_no_jax():
+    """tracekit and palkit import neither JAX nor anything of the JAX
+    package (each file, and in a fresh process), and palkit refuses to run
+    without a card."""
+    for name in ("analysis/tracekit.py", "analysis/palkit.py",
+                 "analysis/lint.py", "analysis/baseline.py"):
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "from repro_torch.analysis import palkit, tracekit\n"
+            "from repro_torch import stages\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

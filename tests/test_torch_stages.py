@@ -9,7 +9,11 @@ acceptance (``precompile_fleet``, then a ``launch/ingest`` and a
 ``launch/query`` run with 0 compiles and 0 lowerings); the ``dispatch``
 records read by the reference's monitor; the gauge names;
 ``contracts.debug_signature`` keying a separate entry; ``_step_sig``;
-the cache directory; a ``"graph"`` entry on the CPU; and the decode step
+the cache directory; a ``"graph"`` entry on the CPU; the introspection
+under the reference's names and keys (``abstract_args``,
+``compiled_for``, ``cost_of`` on clones, ``audit``,
+``Compiled.cost_analysis`` / ``as_text`` / ``memory_analysis``); and the
+decode step
 with a 0-d tensor ``cache_len``, at and past ``max_len``, against the
 host-int decode and the reference (rtol 1e-4 / atol 1e-5, float sums in
 another order).
@@ -445,3 +449,108 @@ def test_decode_with_a_tensor_cache_len(arch):
                                        err_msg=f"{k} at {n}", **DECODE)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                    err_msg=f"logits at {n}", **DECODE)
+
+
+# -------------------------------------------------------- introspection -----
+
+MEMORY_ATTRS = ("argument_size_in_bytes", "output_size_in_bytes",
+                "temp_size_in_bytes", "alias_size_in_bytes",
+                "generated_code_size_in_bytes")
+
+
+def _small_update():
+    sig = stages.signature_of(cuts=(16, 64), block_size=8,
+                              batch_mode="switch",
+                              extra=(("case", "introspection"),))
+    h = thier.create((16, 64), 8, torch.float32, tsr.PLUS_TIMES,
+                     device="cpu")
+    g = np.random.default_rng(0)
+    block = tuple(torch.as_tensor(g.integers(0, 50, 8).astype(np.int32))
+                  for _ in range(2)) + (torch.ones(8),)
+    return thier.update_wrapped(sig), (h,) + block + (None,)
+
+
+def test_introspection_has_the_references_names():
+    for name in ("abstract_args", "compiled_for", "cost_of", "audit"):
+        assert callable(getattr(stages, name))
+        assert callable(getattr(jstages, name))
+    for name in ("cost_analysis", "as_text", "memory_analysis"):
+        assert callable(getattr(stages.Compiled, name))
+        assert callable(getattr(jstages.Compiled, name))
+
+
+def test_abstract_args_rebuilds_the_key():
+    w, args = _small_update()
+    key = w._key(args)
+    rebuilt = stages.abstract_args(key)
+    assert w._key(rebuilt) == key
+    assert isinstance(rebuilt[0], thier.HierAssoc)
+    assert rebuilt[0].cuts == (16, 64)
+    leaves = stages.tree_leaves(rebuilt)
+    assert leaves and all(isinstance(x, stages.Abstract) for x in leaves)
+    assert rebuilt[4] is None
+
+
+def test_cost_of_has_the_references_keys_and_leaves_state_unchanged():
+    w = stages.wrap(lambda x: x.add_(1), "test.stages.inplace",
+                    stages.signature_of(extra=(("case", "inplace"),)),
+                    donate_argnums=(0,))
+    x = torch.arange(8, dtype=torch.float32)
+    before = x.clone()
+    cost = stages.cost_of(w, x)
+    assert torch.equal(x, before)
+    jw = jstages.wrap(lambda v: v + 1, "test.stages.jcost",
+                      jstages.signature_of(extra=(("case", "jcost"),)))
+    assert set(cost) == set(jstages.cost_of(jw, jnp.zeros(8))) == \
+        {"flops", "bytes_accessed", "peak_bytes"}
+    assert cost["flops"] == 0 and cost["bytes_accessed"] == 64
+    # a fleet entry: the state passed in is the state after
+    uw, args = _small_update()
+    snap = [t.clone() for t in stages.tree_leaves(args)]
+    c2 = stages.cost_of(uw, *args)
+    assert c2["bytes_accessed"] > 0 and c2["peak_bytes"] > 0
+    assert all(torch.equal(a, b)
+               for a, b in zip(stages.tree_leaves(args), snap))
+
+
+def test_compiled_introspection():
+    w, args = _small_update()
+    comp = stages.compiled_for(w, *args)
+    w(*args)
+    assert w.last is comp
+    cost = comp.cost_analysis()          # recorded on zeros of the key
+    assert {"flops", "bytes accessed"} <= set(cost)
+    jcomp = jstages.compiled_for(
+        jstages.wrap(lambda v: v * 2, "test.stages.jintro",
+                     jstages.signature_of(extra=(("case", "jintro"),))),
+        jnp.zeros(4))
+    assert {"flops", "bytes accessed"} <= set(jcomp.cost_analysis())
+    jmem = jcomp.memory_analysis()
+    mem = comp.memory_analysis()
+    for name in MEMORY_ATTRS:
+        assert hasattr(jmem, name)
+        assert getattr(mem, name) >= 0
+    assert mem.argument_size_in_bytes > 0 and mem.temp_size_in_bytes > 0
+    text = comp.as_text()
+    assert text.startswith("# entry hier.update kind eager")
+    assert "aten." in text and "host_read item" in text
+    # a graph entry's text names the kernels a replay launches
+    qs = tservice.make_point_query_fn()
+    states = tdist.create_instances(2, (16, 64), 8, torch.float32,
+                                    tsr.PLUS_TIMES, device="cpu")
+    q = torch.arange(4, dtype=torch.int32)
+    gtext = stages.compiled_for(qs, states, q, q).as_text()
+    assert "kind graph" in gtext and "# replay launches" in gtext
+
+
+def test_audit_is_tracekits(monkeypatch):
+    from repro_torch.analysis import tracekit
+    seen = {}
+
+    def fake(cfg=None, **kw):
+        seen.update(cfg=cfg, kw=kw)
+        return "audited"
+
+    monkeypatch.setattr(tracekit, "audit_fleet", fake)
+    assert stages.audit("cfg", device="cpu") == "audited"
+    assert seen == dict(cfg="cfg", kw=dict(device="cpu"))
