@@ -238,11 +238,36 @@ which the node-tiled kernel read.
    per tool, and what counted it; null, with the reason, for a tool whose
    class nothing checked).  Rehearse with
    ``tests/test_torch_chip_smoke.py::test_analysis_phase_on_cpu``.
+17. the sharding layer (``sharding_phase``): (a) phase 10's checkpoint of
+   the 32-instance fleet at round 8 restored with ``ckpt.restore(...,
+   shardings=)`` under ``Shard(0)`` of the fleet's ``("data",)``
+   ``DeviceMesh`` on P = 2 and 4 gloo ranks sharing the card (each rank
+   reads its 32/P instances from disk), grown to 40 by
+   ``rebalance_instances(..., sharding=)``, then the 8 remaining rounds
+   of the grown fleet's stream through ``sharded_ingest_fn`` on the
+   kernel route: the ranks' blocks joined equal one process's restore ->
+   resize -> same rounds leaf for leaf, the fleet counter on every rank,
+   overflow 0, every rank launched ``merge_multi``; (b) one
+   ``transformer.make_train_step`` step under ``use_policy(make_policy
+   (mesh))`` — parameters and AdamW moments placed by ``to_shardings
+   (lm_param_specs(...))``, the batch by ``batch_sharding`` — of the
+   five LM smoke configs (8 x 32; phi3-mini's is the reference's
+   ``test_real_execution_on_mesh_matches_single``) and of
+   ``smollm-360m`` whole (4 x 1024), float32, TF32 off, on a (2, 2)
+   ``("data", "model")`` nccl mesh with 4 or more cards (one a rank),
+   else a (1, 1) nccl mesh on the card: the loss within 5e-4 of the same
+   step unsharded, every parameter within rtol 1e-4 plus a tenth of one
+   lr step, every local shard's shape its spec's arithmetic; (c)
+   ``make_production_mesh`` under a fake process group of 256 and of 512
+   ranks, in a child process each: every leaf of the five LM full
+   configs, DCN-v2 and GraphCast on ``meta`` placed on it with the local
+   shape its spec gives — shapes only, nothing runs.  Rehearse with
+   ``tests/test_torch_chip_smoke.py::test_sharding_phase_on_cpu``.
 
-It prints phase 13's, 14's, 15's and 16's numbers as one JSON line each
-(``{"serve": ...}``, ``{"train_lm": ...}``, ``{"stages": ...}``,
-``{"analysis": ...}``), the card line, one JSON line with every kernel's
-numbers (the
+It prints phase 13's, 14's, 15's, 16's and 17's numbers as one JSON line
+each (``{"serve": ...}``, ``{"train_lm": ...}``, ``{"stages": ...}``,
+``{"analysis": ...}``, ``{"sharding": ...}``), the card line, one JSON
+line with every kernel's numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
 the kernel took powers of two only; both merge rows carry their float16
@@ -252,7 +277,8 @@ carries ``phase12_launches``, phase 12's launches summed over each
 fleet's ranks, ``phase9_query_launches`` (phase 9's query batches: the
 warm-up's eager batch, then replays; a captured graph's launches are
 counted at each replay), ``phase9_replay_launches`` and
-``phase15_launches_per_replay``.
+``phase15_launches_per_replay``, and ``phase17_launches`` (phase 17
+(a)'s, summed over each P's ranks).
 """
 from __future__ import annotations
 
@@ -3533,6 +3559,450 @@ def analysis_phase(torch, device, card: str, tmp: str, *,
     return res
 
 
+# ------------------------------------------------------------- phase 17 --
+
+SHARD_RANKS = (2, 4)            # gloo ranks sharing the card, (a)
+SHARD_GROW = 40                 # phase 10's 32-instance fleet grown to 40
+MESH_LR = 1e-3                  # the reference's test_real_execution lr
+MESH_LOSS_TOL = 5e-4            # ... and its loss bound
+MESH_PARAM_RTOL = 1e-4          # params: rtol plus a tenth of one lr step
+MESH_AXES = ("data", "model")
+# the five smoke configs (phi3-mini's is the reference's test), then
+# smollm-360m whole
+MESH_JOBS = tuple((arch, True, 8, 32) for arch in (
+    "phi3-mini-3.8b", "deepseek-v2-236b", "granite-moe-3b-a800m",
+    "mistral-nemo-12b", "smollm-360m")) + (("smollm-360m", False, 4, 1024),)
+EXPERT_TP_ARCH = "granite-moe-3b-a800m"     # moe_shard "tp"
+
+
+def mesh_jobs(shape) -> tuple:
+    """Phase 17 (b)'s jobs on a mesh of ``shape``: ``MESH_JOBS``, less
+    granite-moe's expert-TP step where a model axis shards its experts'
+    FFN: torch 2.11's DTensor computes the backward of the dispatch's
+    ``index_select`` from a sharded gradient and the whole index (an
+    ``index_add_`` size error; PERF.md).  The tests (torch 2.13) run it
+    on a (2, 2) mesh."""
+    if shape[-1] == 1:
+        return MESH_JOBS
+    return tuple(j for j in MESH_JOBS if j[0] != EXPERT_TP_ARCH)
+
+
+GRAPHCAST_D_FEAT = 100          # GNN_SHAPES["ogb_products"]["d_feat"]
+
+
+def shard_fleet_rank(mesh, args, ckpt_dir: str, step: int, n_new: int
+                     ) -> dict:
+    """One rank of phase 17 (a) (``spawn_fleet``): checkpoint ``step`` of
+    ``args``' fleet restored under ``Shard(0)`` of the fleet's
+    ``("data",)`` ``DeviceMesh`` (the rank reads its block from disk),
+    resized to ``n_new`` instances under the same sharding, then the
+    remaining rounds of the grown fleet's stream through
+    ``sharded_ingest_fn``.  Returns the rank's block (numpy), its
+    restored block's shape, the fleet counter, launches, times and peak
+    memory."""
+    import argparse
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import distributed, hier
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.kernels import registry
+    from repro_torch.launch import ingest
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.runtime import rebalance_instances
+    dev = mesh.device
+    dmesh = mesh_mod.fleet_device_mesh(mesh)
+    sharding = sh.to_shardings(sh.Spec("data"), dmesh)
+    sig = ingest.signature(args)
+    template = distributed.create_instances(args.instances, sig.cuts,
+                                            args.block_size, device="meta")
+    torch.zeros(1, device=dev)          # the rank's context, not timed
+    _sync(torch, dev)
+    _peak_reset(torch, dev)
+    t0 = time.perf_counter()
+    restored = ckpt.restore(ckpt_dir, step, template, shardings=sharding)
+    restored_block = tuple(restored.spills.to_local().shape)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grown = rebalance_instances(restored, n_new, sharding=sharding)
+    _sync(torch, dev)
+    rebalance_s = time.perf_counter() - t0
+    states = hier.map_state(lambda x: x.to_local(), grown)
+    grown_args = argparse.Namespace(**{**vars(args), "instances": n_new})
+    ingest_fn = distributed.sharded_ingest_fn(mesh, FLEET_AXES,
+                                              **ingest.ingest_knobs(sig))
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    for rnd in range(step, args.rounds):
+        rows, cols, vals = (distributed.shard(mesh, x) for x in
+                            fleet_round(torch, grown_args, rnd, dev, False))
+        states, _ = ingest_fn(states, rows, cols, vals)
+    _sync(torch, dev)
+    ingest_s = time.perf_counter() - t0
+    launches = registry.launches()
+    count = distributed.aggregate_update_counts_fn(mesh, FLEET_AXES)(states)
+    return dict(rank=mesh.rank, device=str(dev), restored_block=restored_block,
+                block=tuple(states.spills.shape),
+                state=hier.state_to_numpy(states), count=count,
+                launches=launches, restore_s=restore_s,
+                rebalance_s=rebalance_s, ingest_s=ingest_s,
+                peak_gib=_peak_gib(torch, dev))
+
+
+def shard_fleet_check(torch, args, ckpt_dir: str, step: int, n_new: int,
+                      device, tmp: str, card: str) -> dict:
+    """Phase 17 (a): the single-process restore -> resize -> remaining
+    rounds, then the same on each P of ``SHARD_RANKS`` gloo ranks; the
+    ranks' blocks joined equal to it leaf for leaf, each restored block
+    ``1/P`` of the checkpoint's fleet, the fleet counter on every rank,
+    overflow 0, and every rank launched ``merge_multi`` on the card."""
+    import argparse
+
+    import numpy as np
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import distributed, hier, stream
+    from repro_torch.kernels import registry
+    from repro_torch.launch import ingest
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.runtime import rebalance_instances
+    sig = ingest.signature(args)
+    template = distributed.create_instances(args.instances, sig.cuts,
+                                            args.block_size, device=device)
+    one = rebalance_instances(ckpt.restore(ckpt_dir, step, template), n_new)
+    grown_args = argparse.Namespace(**{**vars(args), "instances": n_new})
+    registry.reset_launches()
+    for rnd in range(step, args.rounds):
+        one, _ = stream.ingest_instances(
+            one, *fleet_round(torch, grown_args, rnd, device, False),
+            **ingest.ingest_knobs(sig))
+    single_launches = registry.launches()[MM]
+    want = dict(state=hier.state_to_numpy(one),
+                count=hier.exact_update_count(one))
+    del one, template
+    on_card = torch.device(device).type == "cuda"
+    runs = []
+    for ranks in SHARD_RANKS:
+        what = f"sharded restore + rebalance, gloo P={ranks}"
+        t0 = time.perf_counter()
+        got = mesh_mod.spawn_fleet(shard_fleet_rank, ranks, "gloo", device,
+                                   tmp, args=(args, ckpt_dir, step, n_new))
+        wall = time.perf_counter() - t0
+        for k, v in want["state"].items():
+            if k == "cuts":
+                continue
+            joined = np.concatenate([r["state"][k] for r in got])
+            if not np.array_equal(joined, v):
+                raise AssertionError(f"{what}: {k} of the ranks' blocks != "
+                                     f"the single-process fleet's")
+        for r in got:
+            if r["restored_block"][0] != args.instances // ranks or \
+                    r["block"][0] != n_new // ranks:
+                raise AssertionError(f"{what}: rank {r['rank']} held "
+                                     f"{r['restored_block']} then "
+                                     f"{r['block']} instances")
+            if r["count"] != want["count"]:
+                raise AssertionError(f"{what}: rank {r['rank']} counts "
+                                     f"{r['count']}, not {want['count']}")
+            if on_card and r["launches"][MM] == 0:
+                raise AssertionError(f"{what}: rank {r['rank']} never "
+                                     f"launched merge_multi")
+        if int(np.sum(want["state"]["overflow"])) != 0:
+            raise AssertionError(f"{what}: the fleet overflowed")
+        launches = sum(r["launches"][MM] for r in got)
+        res = dict(ranks=ranks, devices=[r["device"] for r in got],
+                   wall_s=wall, restore_s=[r["restore_s"] for r in got],
+                   rebalance_s=[r["rebalance_s"] for r in got],
+                   ingest_s=[r["ingest_s"] for r in got],
+                   peak_gib=[r["peak_gib"] for r in got],
+                   merge_multi=launches,
+                   rank_merge_multi=[r["launches"][MM] for r in got])
+        runs.append(res)
+        print(f"{what}: {args.instances} -> {n_new} instances from step "
+              f"{step}, {args.rounds - step} more rounds; blocks joined == "
+              f"one process (counter {want['count']}, overflow 0); "
+              f"merge_multi per rank {res['rank_merge_multi']} (one "
+              f"process: {single_launches}); restore s "
+              f"{[round(x, 4) for x in res['restore_s']]}, rebalance s "
+              f"{[round(x, 4) for x in res['rebalance_s']]}, ingest s "
+              f"{[round(x, 4) for x in res['ingest_s']]}; peak GiB "
+              f"{res['peak_gib']}; wall {wall:.2f} s; {card}", flush=True)
+    return dict(counter=want["count"], single_merge_multi=single_launches,
+                runs=runs)
+
+
+def _timed_steps(torch, dev, fn):
+    """([ms], result) of one call of ``fn``, the device synchronized
+    around it."""
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, dev)
+    return [(time.perf_counter() - t0) * 1e3], out
+
+
+def lm_mesh_rank(fleet, shape, jobs, lr: float) -> list:
+    """One rank of phase 17 (b) (``spawn_fleet``): for each job (arch,
+    smoke, batch, seq) in float32 with TF32 off, one
+    ``transformer.make_train_step`` step unsharded, then one on the
+    ``shape`` ``("data", "model")`` mesh under ``make_policy(mesh)`` —
+    parameters placed by ``to_shardings(lm_param_specs(...))``, AdamW
+    moments under the same placements, the batch under
+    ``batch_sharding``; every local shard's shape held to its spec's
+    arithmetic.  Returns each job's losses, worst parameter excess over
+    ``rtol * |p| + lr / 10``, peak memory, and the times of the checked
+    first step and of a second step from its state (both arms)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data import pipeline
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = fleet.device
+    mesh = mesh_mod.make_test_mesh(shape, MESH_AXES, dev)
+    coord = dict(zip(MESH_AXES, mesh.get_coordinate()))
+    sizes = dict(zip(MESH_AXES, mesh.shape))
+    policy = sh.make_policy(mesh)
+    out = []
+    for arch, smoke, b, s in jobs:
+        get = arch_registry.get_smoke_config if smoke \
+            else arch_registry.get_config
+        cfg = dataclasses.replace(get(arch), dtype="float32")
+        step = tf.make_train_step(cfg, AdamWConfig(lr=lr))
+        batch = token_batch(0, b, s, cfg.vocab, device=dev)
+        params = tf.init(0, cfg, device=dev)
+        plain_ms, (params, opt, m0) = _timed_steps(
+            torch, dev, lambda: step(params, adamw_init(params), batch))
+        want = {p: x.clone() for p, x in sh.leaves_with_paths(params)}
+        loss0 = float(m0["total"])
+        plain_ms.append(_timed_steps(
+            torch, dev, lambda: step(params, opt, batch))[0][0])
+        del params, opt, m0
+        params = tf.init(0, cfg, device=dev)
+        specs = sh.lm_param_specs(params, cfg, policy)
+        placed = common.with_leaves(params, common.tree_map(
+            sh.place, params, sh.to_shardings(specs, mesh)))
+        del params
+        bsh = pipeline.batch_sharding(mesh, policy.batch_axes)
+        sbatch = {k: sh.place(v, bsh) for k, v in batch.items()}
+        _peak_reset(torch, dev)
+        with sh.use_policy(policy):
+            step_ms, (placed, opt, m1) = _timed_steps(
+                torch, dev, lambda: step(placed, adamw_init(placed), sbatch))
+        loss1 = float(m1["total"].full_tensor())
+        worst = -math.inf
+        spec_of = dict(sh.leaves_with_paths(specs))
+        leaves = sh.leaves_with_paths(placed)
+        for path, p in leaves:
+            local = tuple(p.to_local().shape)
+            spec_local = sh.local_shape(tuple(p.shape), spec_of[path],
+                                        sizes, coord)
+            if local != spec_local:
+                raise AssertionError(f"{arch} {path}: local shard {local}, "
+                                     f"its spec {spec_of[path]} gives "
+                                     f"{spec_local}")
+            err = (p.full_tensor() - want[path]).abs() \
+                - MESH_PARAM_RTOL * want[path].abs()
+            worst = max(worst, float(err.max()))
+        with sh.use_policy(policy):
+            step_ms.append(_timed_steps(
+                torch, dev, lambda: step(placed, opt, sbatch))[0][0])
+        out.append(dict(arch=arch, smoke=smoke, batch=b, seq=s,
+                        device=str(dev), loss=loss1, unsharded_loss=loss0,
+                        param_excess=worst, step_ms=step_ms,
+                        unsharded_step_ms=plain_ms,
+                        peak_gib=_peak_gib(torch, dev),
+                        leaves=len(leaves)))
+        del placed, opt, m1, want
+    return out
+
+
+
+
+def production_shapes_check(torch, mesh) -> int:
+    """Every leaf of the five LM full configs (layout ``"2d"``), DCN-v2's
+    and GraphCast's (``"dp"``, as the reference's cells lay them out),
+    drawn on ``meta`` and placed on the production ``mesh``: its local
+    shard's shape under ``sharding.place`` and under DTensor's own
+    ``distribute_tensor`` equals its spec's arithmetic at this rank's
+    coordinate.  Shapes only: nothing runs.  Returns the leaves
+    checked."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.models import dcn, gnn
+    from repro_torch.models import transformer as tf
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    coord = dict(zip(names, mesh.get_coordinate()))
+    trees = [(arch, "lm", tf.init(0, arch_registry.get_config(arch),
+                                  device="meta")) for arch in LM_ARCHS]
+    trees.append(("dcn-v2", "dp", dcn.init(
+        0, arch_registry.get_config("dcn-v2"), device="meta")))
+    gc_cfg = arch_registry.get_config("graphcast")
+    trees.append(("graphcast", "dp", gnn.init(
+        0, gc_cfg, GRAPHCAST_D_FEAT, gc_cfg.n_vars, device="meta")))
+    checked = 0
+    for arch, kind, params in trees:
+        cfg = arch_registry.get_config(arch)
+        if kind == "lm":
+            specs = sh.lm_param_specs(params, cfg, sh.make_policy(mesh, "2d"))
+        elif arch == "dcn-v2":
+            specs = sh.recsys_param_specs(params, cfg,
+                                          sh.make_policy(mesh, "dp"))
+        else:
+            specs = sh.gnn_param_specs(params, cfg,
+                                       sh.make_policy(mesh, "dp"))
+        spec_of = dict(sh.leaves_with_paths(specs))
+        for path, leaf in sh.leaves_with_paths(params):
+            sharding = sh.to_shardings(spec_of[path], mesh)
+            want = sh.local_shape(tuple(leaf.shape), spec_of[path], sizes,
+                                  coord)
+            got = [tuple(t.to_local().shape) for t in (
+                sh.place(leaf, sharding),
+                distribute_tensor(leaf, mesh, sharding.placements))]
+            if got != [want, want]:
+                raise AssertionError(
+                    f"{arch} {path} on {tuple(mesh.shape)}: local shards "
+                    f"{got} (place, distribute_tensor), spec "
+                    f"{spec_of[path]} gives {want}")
+            checked += 1
+    return checked
+
+
+def production_child(world: int, multi_pod: bool, device: str,
+                     out_path: str) -> None:
+    """Phase 17 (c)'s child process: a fake process group (``FakeStore``,
+    backend ``"fake"``) of ``world`` ranks, ``make_production_mesh`` over
+    it, ``production_shapes_check``; the result as JSON in
+    ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import mesh as mesh_mod
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod, device=device)
+    leaves = production_shapes_check(torch, mesh)
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(dict(world=world, mesh=list(mesh.shape),
+                       axes=list(mesh.mesh_dim_names),
+                       device_type=mesh.device_type, leaves=leaves,
+                       seconds=time.perf_counter() - t0), f)
+
+
+def production_meshes(device: str, tmp: str) -> list:
+    """Phase 17 (c): ``production_child`` at world size 256 and at 512
+    (the multi-pod mesh), each in a spawned process, since the fake group
+    is process-global."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    out = []
+    for world, multi_pod in ((256, False), (512, True)):
+        path = os.path.join(tmp, f"production_{world}.json")
+        proc = ctx.Process(target=production_child,
+                           args=(world, multi_pod, device, path))
+        proc.start()
+        proc.join()
+        if proc.exitcode != 0:
+            raise AssertionError(f"the production mesh child at world "
+                                 f"{world} exited {proc.exitcode}")
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+def lm_mesh_check(torch, backend: str, shape, jobs, device, tmp: str,
+                  card: str) -> list:
+    """Phase 17 (b) on one ``(backend, shape)`` mesh (a (2, 2) nccl mesh
+    needs one card a rank): ``lm_mesh_rank`` on every rank, each job's
+    sharded loss within ``MESH_LOSS_TOL`` of the unsharded step's and its
+    parameters within ``MESH_PARAM_RTOL`` plus a tenth of one lr step on
+    every rank.  Returns one record a job."""
+    from repro_torch.launch import mesh as mesh_mod
+    ranks = math.prod(shape)
+    t0 = time.perf_counter()
+    got = mesh_mod.spawn_fleet(lm_mesh_rank, ranks, backend, device, tmp,
+                               args=(shape, jobs, MESH_LR))
+    wall = time.perf_counter() - t0
+    out = []
+    for i, (arch, smoke, b, s) in enumerate(jobs):
+        rows = [r[i] for r in got]
+        r0 = rows[0]
+        what = (f"{arch}{' smoke' if smoke else ''} {b} x {s} on a "
+                f"{shape} {backend} mesh")
+        if any(abs(r["loss"] - r["unsharded_loss"]) > MESH_LOSS_TOL
+               for r in rows):
+            raise AssertionError(f"{what}: sharded loss "
+                                 f"{[r['loss'] for r in rows]} vs "
+                                 f"unsharded "
+                                 f"{[r['unsharded_loss'] for r in rows]}")
+        excess = max(r["param_excess"] for r in rows)
+        if excess > MESH_LR / 10:
+            raise AssertionError(f"{what}: a parameter is off by {excess} "
+                                 f"beyond rtol {MESH_PARAM_RTOL}")
+        rec = dict(arch=arch, smoke=smoke, batch=b, seq=s, backend=backend,
+                   mesh=list(shape), ranks=ranks,
+                   cards=torch.cuda.device_count()
+                   if torch.cuda.is_available() else 0,
+                   devices=[r["device"] for r in rows], loss=r0["loss"],
+                   unsharded_loss=r0["unsharded_loss"], param_excess=excess,
+                   # the second step (the first, checked, one is its cold
+                   # start)
+                   step_ms=[r["step_ms"][1] for r in rows],
+                   unsharded_step_ms=[r["unsharded_step_ms"][1]
+                                      for r in rows],
+                   first_step_ms=[r["step_ms"][0] for r in rows],
+                   unsharded_first_step_ms=[r["unsharded_step_ms"][0]
+                                            for r in rows],
+                   peak_gib=[r["peak_gib"] for r in rows],
+                   leaves=r0["leaves"], wall_s=wall)
+        out.append(rec)
+        print(f"(b) {what}: loss {rec['loss']:.6f} == unsharded "
+              f"{rec['unsharded_loss']:.6f} (tol {MESH_LOSS_TOL}); params "
+              f"within rtol {MESH_PARAM_RTOL} + lr/10 (worst excess "
+              f"{excess:.3g}); every local shard as its spec; second step "
+              f"ms {rec['step_ms']} (unsharded {rec['unsharded_step_ms']}; "
+              f"first steps {rec['first_step_ms']}, unsharded "
+              f"{rec['unsharded_first_step_ms']}); peak GiB "
+              f"{rec['peak_gib']}; {card}", flush=True)
+    return out
+
+
+def sharding_phase(torch, args, ckpt_dir: str, step: int, device, card: str,
+                   tmp: str, *, mesh_runs, jobs=None,
+                   n_new: int = SHARD_GROW) -> dict:
+    """Phase 17: (a) ``shard_fleet_check``; (b) ``lm_mesh_check`` of
+    ``jobs`` (default: ``mesh_jobs(shape)``) on each ``(backend, shape)``
+    of ``mesh_runs``; (c) ``production_meshes``.  Returns the
+    ``{"sharding": ...}`` record."""
+    t0 = time.perf_counter()
+    res = dict(fleet=shard_fleet_check(torch, args, ckpt_dir, step, n_new,
+                                       device, tmp, card))
+    res["lm"] = [rec for backend, shape in mesh_runs
+                 for rec in lm_mesh_check(torch, backend, shape,
+                                          jobs or mesh_jobs(shape), device,
+                                          tmp, card)]
+    res["production"] = production_meshes(
+        "cuda" if torch.device(device).type == "cuda" else "cpu", tmp)
+    for p in res["production"]:
+        print(f"(c) production mesh {tuple(p['mesh'])} over {p['axes']} "
+              f"under a fake group of {p['world']}: shapes only, "
+              f"{p['leaves']} leaves of five LM configs, DCN-v2 and "
+              f"GraphCast each as its spec gives", flush=True)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3748,10 +4218,11 @@ def main() -> int:
           "geometry, 32 instances")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        fault = fault_phase(torch, ingest_args(ckpt_every=4),
-                            ingest_args(instances=8, blocks=32, rounds=4),
-                            tmp)
+    fault_tmp = tempfile.TemporaryDirectory()     # phase 17 restores from it
+    fault_args = ingest_args(ckpt_every=4)
+    fault = fault_phase(torch, fault_args,
+                        ingest_args(instances=8, blocks=32, rounds=4),
+                        fault_tmp.name)
     print(json.dumps(fault), flush=True)
     print(f"phase 10 wall {time.perf_counter() - t0:.1f} s; {card}",
           flush=True)
@@ -3850,6 +4321,22 @@ def main() -> int:
         raise AssertionError("tracekit's recorded calls launched no "
                              "merge_multi: the kernel route was not audited")
     print(f"phase 16 wall {analysed['wall_s']:.1f} s; {card}", flush=True)
+
+    phase("17 the sharding layer: the fleet restored and resized under "
+          "Shard(0) on gloo ranks sharing the card, an FSDP x TP LM step on "
+          "a DeviceMesh, the production meshes (shapes only)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_runs = [("nccl", (2, 2) if n_cards >= 4 else (1, 1))]
+    print(f"{n_cards} card(s): the LM step on a {mesh_runs[0][1]} nccl mesh"
+          + ("" if n_cards >= 4 else " (a (2, 2) nccl mesh needs 4 cards, "
+             "one a rank)"), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = sharding_phase(
+            torch, fault_args, os.path.join(fault_tmp.name, "fleet"),
+            fault["resumed_at"], "cuda", card, tmp, mesh_runs=mesh_runs)
+    fault_tmp.cleanup()
+    print(f"phase 17 wall {sharded['wall_s']:.1f} s; {card}", flush=True)
     fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
                       for r in fleet["runs"]}
     fleet_launches.update({f"{s} gloo P=2": fleet[s]["merge_multi"]
@@ -3892,12 +4379,16 @@ def main() -> int:
         staged["canon_batch"]["merge_multi_per_replay"]
     kernels[0]["phase16_tracekit_launches"] = \
         analysed["tracekit"]["launches"][MM]
+    kernels[0]["phase17_launches"] = {
+        f"gloo P={r['ranks']}": r["merge_multi"]
+        for r in sharded["fleet"]["runs"]}
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": served, "card": card}))
     print(json.dumps({"train_lm": trained, "card": card}))
     print(json.dumps({"stages": staged, "card": card}))
     print(json.dumps({"analysis": {k: v for k, v in analysed.items()
                                    if k != "report"}, "card": card}))
+    print(json.dumps({"sharding": sharded, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

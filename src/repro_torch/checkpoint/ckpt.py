@@ -23,12 +23,16 @@ a checkpoint written by either package restores in the other:
   * bfloat16 leaves are written as the JAX package writes them, raw 2-byte
     words (numpy has no bfloat16), with ``bfloat16`` in the manifest.
 
-``restore`` places each leaf on its template leaf's device (the port's
-counterpart of the reference's shardings), or on ``device``; restoring a
-checkpoint written from the card onto the CPU, or onto another instance
-count followed by ``runtime.elastic.rebalance_instances``, is the same
-code path.  ``AsyncCheckpointer`` copies the state to the host
-synchronously, then writes on a background thread.
+``restore`` places each leaf on its template leaf's device, or on
+``device``, or with ``shardings=`` under a ``distribution.sharding
+.Sharding`` as the reference ``device_put``s it under a ``NamedSharding``:
+each rank reads only its block of the leaf from disk (a memory-mapped
+``.npy``) and keeps it as a DTensor on the mesh's device, with no
+collective.  Restoring a checkpoint written from the card onto the CPU,
+onto a mesh, or onto another instance count followed by
+``runtime.elastic.rebalance_instances``, is the same code path.
+``AsyncCheckpointer`` copies the state to the host synchronously, then
+writes on a background thread.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from repro_torch import resolve_device
 from repro_torch.analysis import contracts
 from repro_torch.core import hier, vassoc
 from repro_torch.core.hier import HierAssoc
+from repro_torch.distribution import sharding as sharding_mod
 from repro_torch.models import common
 
 _MANIFEST = "manifest.json"
@@ -76,7 +81,9 @@ def _walk(node, path: str, fn: Callable) -> Any:
         overflow = fn(_join(path, ".overflow"), node.overflow, None)
         lo = fn(_join(path, ".n_updates"), lo, np.uint32)
         hi = fn(_join(path, ".n_updates_hi"), hi, None)
-        n = (hi.to(torch.int64) << 32) + lo.to(torch.int64)
+        # a product, not a shift: DTensor (a restore under shardings) has
+        # no rule for ``<<`` and returns its operand unshifted
+        n = hi.to(torch.int64) * (1 << 32) + lo.to(torch.int64)
         return HierAssoc(layers=layers, spills=spills, overflow=overflow,
                          n_updates=n, cuts=node.cuts)
     if isinstance(node, vassoc.HierVec):
@@ -192,7 +199,33 @@ def _as_template(arr: np.ndarray, tmpl, device):
     return arr
 
 
-def restore(ckpt_dir: str, step: int, template: Any, device=None) -> Any:
+def _sharding_lookup(shardings) -> Callable:
+    """path -> Sharding, from one ``Sharding`` for every leaf or from
+    nested dicts/lists of them in the template's nesting (as
+    ``sharding.to_shardings`` gives for a ``ParamTree``)."""
+    if isinstance(shardings, sharding_mod.Sharding):
+        return lambda path: shardings
+    by_path = {}
+
+    def walk(node, path):
+        if isinstance(node, sharding_mod.Sharding):
+            by_path[path] = node
+            return
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for k, v in items:
+            walk(v, _join(path, str(k)))
+
+    walk(shardings, "")
+
+    def lookup(path):
+        if path not in by_path:
+            raise KeyError(f"no sharding for checkpoint leaf {path!r}")
+        return by_path[path]
+    return lookup
+
+
+def restore(ckpt_dir: str, step: int, template: Any, device=None,
+            shardings: Any = None) -> Any:
     """Rebuild a ``template``-shaped tree from ``<ckpt_dir>/step_<step>``.
 
     Each tensor leaf takes its template leaf's dtype and device (``device``
@@ -202,13 +235,26 @@ def restore(ckpt_dir: str, step: int, template: Any, device=None) -> Any:
     lacks keeps its template value, with a warning; any other missing leaf
     raises ``KeyError``.
 
+    ``shardings`` (one ``Sharding`` for every leaf, or a tree of them in
+    the template's nesting) makes each tensor leaf a DTensor: the rank
+    reads its block of the leaf from disk and keeps exactly that, on the
+    mesh's device (the card unless the mesh is a CPU mesh); no collective
+    is made.  The template gives dtypes and shapes only there (it may be
+    on ``meta``).  ``device`` and ``shardings`` together raise.
+
     Under ``REPRO_CHECK=1`` the rebuilt tree is validated against the
     canonical-form and counter contracts before the restore returns
-    (``contracts.validate_restored``): a corrupted or hand-edited
-    checkpoint fails here, naming the violated invariant.
+    (``contracts.validate_restored``; under ``shardings`` on each rank's
+    blocks): a corrupted or hand-edited checkpoint fails here, naming the
+    violated invariant.
     """
+    if device is not None and shardings is not None:
+        raise ValueError("restore places leaves on a device or under "
+                         "shardings, not both")
     if device is not None:
         device = resolve_device(device)
+    shard_for = None if shardings is None else _sharding_lookup(shardings)
+    shapes = {}
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -231,12 +277,22 @@ def restore(ckpt_dir: str, step: int, template: Any, device=None) -> Any:
                           f"absent from manifest, keeping template value")
             arr = _to_numpy(tmpl)
         else:
-            arr = np.load(os.path.join(d, info["file"]))
-        return _as_template(arr, tmpl, device)
+            arr = np.load(os.path.join(d, info["file"]),
+                          mmap_mode=None if shard_for is None else "r")
+        if shard_for is None or not isinstance(tmpl, torch.Tensor):
+            return _as_template(np.asarray(arr), tmpl, device)
+        sharding = shard_for(path)
+        shapes[path] = arr.shape
+        block = arr[sharding_mod.local_slices(arr.shape, sharding)]
+        return _as_template(block, tmpl,
+                            sharding_mod.mesh_device(sharding.mesh))
 
     out = _walk(template, "", load)
     if contracts.enabled():
         contracts.validate_restored(out, name=f"restore step_{step}")
+    if shard_for is not None:
+        out = _walk(out, "", lambda path, x, _: sharding_mod.from_shard(
+            x, shard_for(path), shapes[path]) if path in shapes else x)
     return out
 
 

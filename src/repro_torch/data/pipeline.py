@@ -2,11 +2,14 @@
 ``repro/data/pipeline.py::ShardedStream``.
 
 A background thread keeps ``prefetch`` batches in flight so device steps
-never wait on host data (compute/ingest overlap).  Placement is
-``.to(device)`` of every tensor of a batch, where the reference
-``device_put``s each leaf under a ``NamedSharding``; with no device the
-batch passes through as it is.  The reference's ``batch_sharding`` shards
-over a JAX mesh and waits for the port of ``distribution/sharding.py``.
+never wait on host data (compute/ingest overlap).  Placement is either
+``.to(device)`` of every tensor of a batch, or, with ``sharding=``, each
+tensor put under a ``distribution.sharding.Sharding`` as the reference
+``device_put``s each leaf under a ``NamedSharding``: every rank is given
+the whole global batch and keeps its block of it, a DTensor on the mesh's
+device (``sharding.place``; no collective).  ``batch_sharding(mesh,
+batch_axes)`` shards the leading (batch) dim over the named mesh axes.
+With neither the batch passes through as it is.
 """
 from __future__ import annotations
 
@@ -16,24 +19,42 @@ from typing import Iterator, Optional
 
 import torch
 
+from repro_torch.distribution import sharding as sharding_mod
 
-def _place(batch, device: torch.device):
+
+def _map(fn, batch):
     if isinstance(batch, torch.Tensor):
-        return batch.to(device)
+        return fn(batch)
     if isinstance(batch, dict):
-        return {k: _place(v, device) for k, v in batch.items()}
+        return {k: _map(fn, v) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
-        return type(batch)(_place(v, device) for v in batch)
+        return type(batch)(_map(fn, v) for v in batch)
     return batch
+
+
+def batch_sharding(mesh, batch_axes=("data",)) -> sharding_mod.Sharding:
+    """Shard the leading (batch) dim over the given mesh axes."""
+    return sharding_mod.to_shardings(sharding_mod.Spec(tuple(batch_axes)),
+                                     mesh)
 
 
 class ShardedStream:
     """Wraps a host batch iterator with device placement + prefetch; an
     error of the iterator is raised on the consumer side."""
 
-    def __init__(self, it: Iterator, device=None, prefetch: int = 2):
+    def __init__(self, it: Iterator, device=None, prefetch: int = 2,
+                 sharding: Optional[sharding_mod.Sharding] = None):
+        if device is not None and sharding is not None:
+            raise ValueError("ShardedStream places a batch on a device or "
+                             "under a sharding, not both")
         self._it = it
-        self._device = None if device is None else torch.device(device)
+        if sharding is not None:
+            self._place = lambda t: sharding_mod.place(t, sharding)
+        elif device is not None:
+            device = torch.device(device)
+            self._place = lambda t: t.to(device)
+        else:
+            self._place = None
         self._q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
         self._done = object()
         self._err: Optional[BaseException] = None
@@ -43,8 +64,8 @@ class ShardedStream:
     def _worker(self):
         try:
             for batch in self._it:
-                self._q.put(batch if self._device is None
-                            else _place(batch, self._device))
+                self._q.put(batch if self._place is None
+                            else _map(self._place, batch))
         except BaseException as e:      # surfaced on the consumer side
             self._err = e
         finally:

@@ -1,0 +1,512 @@
+"""Sharding policy: parameter specs and activation constraints over a
+``DeviceMesh`` — the port of ``repro/distribution/sharding.py``.
+
+  mesh axes            (pod, data, model)  |  (data, model)
+  batch / tokens       sharded over (pod, data)      — DP across pods
+  params + opt states  sharded over  data            — FSDP within a pod
+  heads / ffn / vocab  sharded over  model           — TP
+  MoE experts          sharded over  model           — EP (or expert-TP when
+                                                       n_experts % tp != 0)
+
+A spec (``Spec``) is the counterpart of a ``PartitionSpec``: one entry per
+tensor dim, each a mesh-axis name, a tuple of names or ``None``
+(replicated).  ``to_placements`` turns it into DTensor placements, one per
+mesh dim: ``Shard(d)`` where dim d names that mesh axis, ``Replicate()``
+elsewhere.  A dim over two axes (``("pod", "data")``) is ``Shard(d)`` on
+both, which splits it pod-major as the ``PartitionSpec`` does; the names
+must come in the mesh's order.  ``sharding`` and ``to_shardings`` give
+``Sharding(mesh, placements)`` pairs, and ``place`` puts a tensor under
+one.
+
+Models call ``constrain(x, *logical)`` with *logical* axis names; the
+active policy (a contextvar set by the caller, ``use_policy``) maps them
+to mesh axes and redistributes the DTensor ``x`` to them.  With no active
+policy it returns ``x`` itself, so model code runs unmodified on one
+device.  Under a policy ``x`` must be a DTensor: a plain tensor there
+raises ``TypeError`` rather than stay unsharded.
+
+Logical axis vocabulary:
+  "batch"   -> (pod, data)     "fsdp"  -> data
+  "tp"      -> model           "ep"    -> model (expert dim)
+  "all"     -> every mesh axis None    -> replicated
+
+Executing the LM step on DTensors.  GSPMD propagates a sharding through
+every op; DTensor does so through the ops it has a rule for, and raises
+for the others.  Before each op of the port's models with no rule (or a
+rule that does not take the placements the step gives it) the model calls
+``replicate(x)``, which redistributes a DTensor to ``Replicate()`` on
+every mesh dim (the identity without a policy), or builds its plain
+operand with ``like(t, x)`` as a replicated DTensor on ``x``'s mesh
+(DTensor refuses an op that mixes it with a plain tensor):
+
+  * ``transformer._embed``: ``index_select`` of the vocab- and
+    FSDP-sharded table (``replicate``: no rule for a sharded source), and
+    the token ids;
+  * ``common.cross_entropy``: the logits before the ``gather`` of the
+    gold logit (no rule for an index along a sharded dim), and the
+    labels (``replicate``);
+  * ``moe.route``: the router's logits gathered whole (``replicate``),
+    so every rank routes all tokens; the slot assignment (the one-hot
+    count and the ``scatter_`` of token ids have no rule) runs on each
+    rank's local copy of the expert ids (``to_local``) and comes back as
+    replicated DTensors (``like``); the tokens and the expert outputs
+    gathered before the dispatch's and the combine's ``index_select``;
+    the aux loss's routed counts (``index_add_``: no rule in torch 2.11)
+    counted on the local expert ids; the gates gathered from the
+    probabilities at the ranking's indices (the sort's backward mixes a
+    plain zeros tensor into DTensors in torch 2.11);
+  * ``attention._heads_whole`` / ``_batch_only``: the q / k / v
+    projections' outputs (GQA and MLA) constrained to the batch sharding
+    alone, their heads gathered over the model axis, and every reshape
+    of the attention put between two such constraints (its two einsums
+    are one grouped ``bmm`` each): DTensor refuses to split a sharded dim
+    into heads the axis does not divide (smollm's) or to merge batch and
+    heads when both are sharded, and it picks such placements for
+    gradients on the card (the constraint's backward puts the gradient
+    back);
+  * ``like``: the positions (``transformer.forward``), ``apply_rope``'s
+    frequencies, ``chunked_attention``'s running max, denominator,
+    accumulator and causal mask, and the dense layers' zero aux loss —
+    tensors built by ``arange`` / ``full`` / ``zeros`` that meet a
+    DTensor;
+  * ``under_current_policy``: a remat layer (``transformer.forward``,
+    ``gnn._layer``) re-enters the caller's policy when the backward
+    recomputes it;
+  * ``optim.adamw``: the update is elementwise, so it runs on each rank's
+    local shard (``to_local``) of parameter, gradient and moments, the
+    gradient first redistributed to its parameter's placements; the
+    global norm is the one collective (``full_tensor``).
+
+The five LM archs' steps execute under a policy (torch 2.13; under
+torch 2.11 granite-moe's expert-TP dispatch fails at a model axis > 1:
+its ``index_select``'s backward meets a sharded gradient with the whole
+index); the DCN-v2 and GNN paths carry their ``constrain`` calls but
+are not executed sharded (the reference lowers them only).
+
+DTensor returns its operand unchanged for ``<<``, ``>>`` and ``&`` with
+an int (torch 2.13): code that may meet a DTensor multiplies instead
+(``checkpoint/ckpt.py``'s counter words).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch import resolve_device
+
+_POLICY: contextvars.ContextVar = contextvars.ContextVar(
+    "sharding_policy", default=None)
+
+
+class Spec(tuple):
+    """Per-dim mesh axes of a tensor: ``Spec("model", None)``,
+    ``Spec(("pod", "data"), None)``; the ``PartitionSpec`` of the port,
+    which like it names a one-axis tuple by the axis alone."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self):
+        return f"Spec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A mesh and one DTensor placement per mesh dim: the port's
+    ``NamedSharding`` (a leaf of a tree, not a sequence)."""
+    mesh: Any
+    placements: Tuple
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _mesh_shape(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def to_placements(spec, mesh) -> tuple:
+    """DTensor placements for ``spec`` on ``mesh``: one per mesh dim."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        at = [names.index(a) for a in axes]
+        if at != sorted(at):
+            raise ValueError(f"spec {spec}: axes {axes} are not in the "
+                             f"mesh's order {names}")
+        for i in at:
+            if out[i] != Replicate():
+                raise ValueError(f"spec {spec}: mesh axis {names[i]!r} "
+                                 f"shards two dims")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def _split(size: int, parts: int, at: int) -> Tuple[int, int]:
+    """Part ``at`` of ``size`` cut in ``parts`` as ``torch.chunk`` cuts
+    it (DTensor's rule): [start, stop)."""
+    chunk = -(-size // parts)
+    start = min(at * chunk, size)
+    return start, min(start + chunk, size)
+
+
+def local_shape(shape, spec, mesh_shape: dict, coordinate=None) -> tuple:
+    """The spec's arithmetic: the shape of one rank's shard of a
+    ``shape`` tensor under ``spec``, each dim cut over its axes in turn
+    (``mesh_shape``: axis name -> size; ``coordinate``: axis name -> the
+    rank's position, default 0 on every axis, the largest shard)."""
+    coordinate = coordinate or {}
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in _axes(entry):
+            start, stop = _split(out[d], mesh_shape[a], coordinate.get(a, 0))
+            out[d] = stop - start
+    return tuple(out)
+
+
+def local_slices(shape, sharding: Sharding) -> tuple:
+    """This rank's block of a ``shape`` tensor under ``sharding``: one
+    slice per dim."""
+    coord = sharding.mesh.get_coordinate()
+    bounds = [(0, n) for n in shape]
+    for i, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard):
+            lo, hi = bounds[pl.dim]
+            start, stop = _split(hi - lo, sharding.mesh.size(i), coord[i])
+            bounds[pl.dim] = (lo + start, lo + stop)
+    return tuple(slice(a, b) for a, b in bounds)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's shards live on: the current CUDA device for
+    a CUDA mesh (ranks sharing a card all name it; raises without a
+    card), else the mesh's device type."""
+    dev = resolve_device(mesh.device_type)
+    if dev.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def from_shard(local: torch.Tensor, sharding: Sharding, shape):
+    """This rank's shard ``local`` of a ``shape`` tensor as a DTensor
+    under ``sharding``; no collective is made."""
+    shape = torch.Size(shape)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    mesh: Any                            # torch DeviceMesh
+    batch_axes: Tuple[str, ...]          # ("pod","data") or ("data",)
+    fsdp_axis: Optional[str] = "data"
+    tp_axis: Optional[str] = "model"
+
+    def resolve(self, logical: Optional[str]):
+        if logical is None:
+            return None
+        if logical == "batch":
+            return self.batch_axes
+        if logical == "fsdp":
+            return self.fsdp_axis
+        if logical in ("tp", "ep"):
+            return self.tp_axis
+        if logical == "all":                 # every mesh axis (flat shard)
+            return tuple(self.mesh.mesh_dim_names)
+        raise ValueError(f"unknown logical axis {logical!r}")
+
+    def spec(self, *logical) -> Spec:
+        return Spec(*(self.resolve(l) for l in logical))
+
+    def sharding(self, *logical) -> Sharding:
+        return to_shardings(self.spec(*logical), self.mesh)
+
+    def axis_size(self, logical: str) -> int:
+        sizes = _mesh_shape(self.mesh)
+        return math.prod(sizes[a] for a in _axes(self.resolve(logical)))
+
+
+def current_policy() -> Optional[ShardingPolicy]:
+    return _POLICY.get()
+
+
+@contextlib.contextmanager
+def use_policy(policy: Optional[ShardingPolicy]):
+    token = _POLICY.set(policy)
+    try:
+        yield policy
+    finally:
+        _POLICY.reset(token)
+
+
+def constrain(x, *logical, divisible_dims: bool = True):
+    """Redistribute the DTensor ``x`` to ``logical``'s placements under
+    the active policy; ``x`` itself without one.
+
+    A logical axis that does not evenly divide its dim is dropped (the
+    dim is replicated), as the reference drops it.  Under a policy a
+    plain tensor raises ``TypeError``: it would stay unsharded where the
+    reference shards it.  The redistribution is recorded even when the
+    placements already match, so that the gradient is put back under the
+    same placements in the backward, as ``with_sharding_constraint``
+    constrains the cotangent (DTensor chooses a gradient's placements
+    freely, and a view's backward may refuse them).
+    """
+    pol = current_policy()
+    if pol is None:
+        return x
+    if not isinstance(x, DTensor):
+        raise TypeError("constrain under a sharding policy takes a DTensor, "
+                        f"got a plain {type(x).__name__} of shape "
+                        f"{tuple(x.shape)}")
+    sizes = _mesh_shape(pol.mesh)
+    specs = []
+    for dim, logical_ax in zip(x.shape, logical):
+        ax = pol.resolve(logical_ax)
+        if ax is not None and divisible_dims and \
+                dim % math.prod(sizes[a] for a in _axes(ax)) != 0:
+            ax = None
+        specs.append(ax)
+    return x.redistribute(pol.mesh, to_placements(Spec(*specs), pol.mesh))
+
+
+def replicate(x):
+    """``x`` redistributed to ``Replicate()`` on every mesh dim when it is
+    a DTensor under a policy (before an op DTensor has no rule for);
+    ``x`` itself otherwise."""
+    if current_policy() is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh,
+                          (Replicate(),) * x.device_mesh.ndim)
+
+
+def to_local(x):
+    """This rank's local tensor of a DTensor; ``x`` itself otherwise."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def like(t: torch.Tensor, ref):
+    """A plain tensor ``t`` that meets the DTensor ``ref`` in an op, as a
+    DTensor replicated over ``ref``'s mesh (every rank holds all of
+    ``t``); ``t`` itself when ``ref`` is a plain tensor.  ``t`` needs no
+    gradient: a ``from_local`` in the backward graph let the ranks run
+    their collectives in different orders (a deadlock, seen when the MoE
+    routing's probabilities came through it)."""
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, ref.device_mesh,
+                              (Replicate(),) * ref.device_mesh.ndim,
+                              run_check=False)
+
+
+def under_current_policy(fn):
+    """``fn`` run under the policy active now, wherever it is called
+    later: ``torch.utils.checkpoint`` recomputes a layer inside the
+    backward, which for CUDA tensors runs on autograd's device thread,
+    where the caller's contextvar is not set (the recompute would then
+    constrain nothing and differ from the forward)."""
+    pol = current_policy()
+
+    def run(*args, **kwargs):
+        with use_policy(pol):
+            return fn(*args, **kwargs)
+    return run
+
+
+def make_policy(mesh, layout: str = "2d") -> ShardingPolicy:
+    """Policy for a production mesh (``launch/mesh.py`` shapes).
+
+    layout "2d": batch over (pod, data); FSDP on data; TP on model.
+    layout "dp": batch over EVERY axis (model folds into data parallelism);
+                 FSDP on data; no TP.  The right call for models whose head
+                 counts don't divide the model axis (e.g. smollm's 15 heads)
+                 — replicated-TP compute is worse than pure DP.
+    """
+    names = tuple(mesh.mesh_dim_names)
+    pod = ("pod",) if "pod" in names else ()
+    if layout == "dp":
+        return ShardingPolicy(mesh, batch_axes=pod + ("data", "model"),
+                              fsdp_axis="data", tp_axis=None)
+    if layout != "2d":
+        raise ValueError(f"unknown layout {layout!r}")
+    return ShardingPolicy(mesh, batch_axes=pod + ("data",),
+                          fsdp_axis="data", tp_axis="model")
+
+
+# ------------------------------------------------------- param spec rules ---
+
+def _divides(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+def lm_param_specs(params, cfg, policy: ShardingPolicy):
+    """Specs for transformer LM params (FSDP x TP), as nested dicts of
+    ``params``' nesting.
+
+    Rules keyed on path leaf names; every matmul weight is sharded on one
+    dim by ``fsdp`` and (where divisible) the other by ``tp``.
+    """
+    tp = policy.axis_size("tp")
+    fs = policy.axis_size("fsdp")
+    TPA = policy.tp_axis                   # None under the "dp" layout
+    FSA = policy.fsdp_axis
+
+    def spec_for(path: str, leaf) -> Spec:
+        shape = leaf.shape
+        ndim = len(shape)
+        name = path.split("/")[-1]
+
+        def ok(dim_i, k):
+            return _divides(shape[dim_i], k)
+
+        # stacked layer params carry a leading L dim -> shift rules right
+        off = 1 if path.startswith("layers/") and ndim >= 2 else 0
+
+        if name in ("embed", "lm_head"):
+            # [V, D]: vocab over tp (sharded logits), D over fsdp
+            return Spec(TPA if ok(0, tp) else None,
+                        FSA if ok(1, fs) else None)
+        if ndim - off == 1:                         # norms / biases
+            return Spec(*([None] * ndim))
+        if name in ("w_gate", "w_up", "wq", "wk", "wv", "wq_a", "wq_b",
+                    "wkv_a", "wkv_b", "router", "shared_gate", "shared_up"):
+            if ndim - off == 3:                     # MoE experts [E, D, F]
+                if cfg.moe_shard == "ep" and ok(off, tp):
+                    return Spec(*([None] * off), TPA,
+                                FSA if ok(off + 1, fs) else None, None)
+                return Spec(*([None] * off), None,  # expert-TP: shard D, F
+                            FSA if ok(off + 1, fs) else None,
+                            TPA if ok(off + 2, tp) else None)
+            return Spec(*([None] * off),
+                        FSA if ok(off, fs) else None,
+                        TPA if ok(off + 1, tp) else None)
+        if name in ("w_down", "wo", "shared_down"):
+            if ndim - off == 3:                     # [E, F, D]
+                if cfg.moe_shard == "ep" and ok(off, tp):
+                    return Spec(*([None] * off), TPA, None,
+                                FSA if ok(off + 2, fs) else None)
+                return Spec(*([None] * off), None,  # expert-TP: shard F, D
+                            TPA if ok(off + 1, tp) else None,
+                            FSA if ok(off + 2, fs) else None)
+            return Spec(*([None] * off),
+                        TPA if ok(off, tp) else None,
+                        FSA if ok(off + 1, fs) else None)
+        # fallback: fsdp on the largest divisible dim
+        for i in range(ndim - 1, -1, -1):
+            if ok(i, fs):
+                return Spec(*([None] * i), FSA, *([None] * (ndim - i - 1)))
+        return Spec(*([None] * ndim))
+
+    return tree_map_with_path(spec_for, params)
+
+
+def gnn_param_specs(params, cfg, policy: ShardingPolicy):
+    """GNN params are small: replicate 1-D, fsdp-shard big matrices."""
+    fs = policy.axis_size("fsdp")
+    FSA = policy.fsdp_axis
+
+    def spec_for(path, leaf):
+        ndim = len(leaf.shape)
+        if ndim >= 2 and fs > 1 and leaf.shape[-1] % fs == 0 \
+                and math.prod(leaf.shape) > 1 << 16:
+            return Spec(*([None] * (ndim - 1)), FSA)
+        return Spec(*([None] * ndim))
+
+    return tree_map_with_path(spec_for, params)
+
+
+def recsys_param_specs(params, cfg, policy: ShardingPolicy):
+    """Embedding table rows shard over the WHOLE mesh; MLPs fsdp x tp."""
+    tp = policy.axis_size("tp")
+    fs = policy.axis_size("fsdp")
+    TPA, FSA = policy.tp_axis, policy.fsdp_axis
+    every = tuple(policy.mesh.mesh_dim_names)
+
+    def spec_for(path, leaf):
+        name = path.split("/")[-1]
+        ndim = len(leaf.shape)
+        if name == "table":                       # [rows, dim]
+            return Spec(every, None)
+        if ndim == 2:
+            return Spec(FSA if fs > 1 and _divides(leaf.shape[0], fs)
+                        else None,
+                        TPA if tp > 1 and _divides(leaf.shape[1], tp)
+                        else None)
+        return Spec(*([None] * ndim))
+
+    return tree_map_with_path(spec_for, params)
+
+
+def _children(node):
+    """(key, child) pairs of a tree node — a ``ParamTree`` or another
+    ``nn.Module``, a dict, a list — or None for a leaf."""
+    from torch import nn
+    if isinstance(node, (nn.ModuleList, list)):
+        return list(enumerate(node))
+    if isinstance(node, nn.Module):
+        items = dict(node.named_parameters(recurse=False))
+        items.update(node.named_children())
+        return list(items.items())
+    if isinstance(node, dict):
+        return list(node.items())
+    return None
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """``fn("a/b/0/c", leaf)`` over a tree's leaves, as nested dicts and
+    lists of its nesting; the paths are the JAX pytree's."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(path, tree)
+    out = {k: tree_map_with_path(fn, c, f"{path}/{k}" if path else str(k))
+           for k, c in kids}
+    if isinstance(tree, (list, torch.nn.ModuleList)):
+        return [out[i] for i in range(len(kids))]
+    return out
+
+
+def leaves_with_paths(tree) -> list:
+    """``(path, leaf)`` of every leaf of a tree (a ``ParamTree``, nested
+    dicts and lists, a tree of ``Spec``s), paths as
+    ``tree_map_with_path``'s."""
+    out = []
+    tree_map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
+    return out
+
+
+def to_shardings(specs, mesh):
+    """A tree of ``Spec``s (or one ``Spec``) -> the same nesting of
+    ``Sharding``s."""
+    if isinstance(specs, Spec):
+        return Sharding(mesh, to_placements(specs, mesh))
+    if isinstance(specs, dict):
+        return {k: to_shardings(v, mesh) for k, v in specs.items()}
+    return [to_shardings(v, mesh) for v in specs]
+
+
+def place(x: torch.Tensor, sharding: Sharding):
+    """The whole tensor ``x`` (every rank holds the same values) as a
+    DTensor under ``sharding``: each rank keeps a copy of its block, on
+    the mesh's device (a ``meta`` tensor stays on ``meta``).  No
+    collective is made."""
+    local = x[local_slices(x.shape, sharding)].clone(
+        memory_format=torch.contiguous_format)
+    if not x.is_meta:
+        local = local.to(mesh_device(sharding.mesh))
+    return from_shard(local, sharding, x.shape)

@@ -14,8 +14,11 @@ The backend is the caller's choice; nothing switches it on its own:
 * ``"gloo"`` lets ranks share a card (all on the one the caller names,
   ``cuda:0`` by default) or run on the CPU.  Several host processes
   feeding one H100 is the paper's node layout (~31 processes a node).
-  Gloo's collectives on CUDA tensors are ``broadcast``, ``all_reduce``
-  and ``barrier`` only; the fleet functions use ``all_reduce`` alone.
+  The fleet functions use ``all_reduce`` alone.  On CUDA tensors gloo
+  takes the ``torch.distributed`` collectives, but the functional
+  all-gather that DTensor's redistribution calls ends the process with a
+  segmentation fault (torch 2.11 on an H100, four ranks on one card), so
+  a DTensor step there needs nccl and one card a rank.
 
 Two ways to start a fleet:
 
@@ -26,11 +29,32 @@ Two ways to start a fleet:
 device count: it starts the ranks with the spawn start method (never
 fork: the parent may hold a CUDA context) and a ``file://`` rendezvous
 in a fresh directory, so concurrent fleets never share a port.
+
+The sharding layer (``distribution/sharding.py``) runs over a
+``torch.distributed.device_mesh.DeviceMesh`` built on the initialized
+process group, rank r at the r-th position of the mesh in row-major
+order:
+
+* ``make_test_mesh(shape=(2, 2), axes=("data", "model"))``: any shape
+  whose size is the world size;
+* ``make_production_mesh()``: ``(16, 16)`` over ``("data", "model")``,
+  256 ranks; ``multi_pod=True``: ``(2, 16, 16)`` over ``("pod", "data",
+  "model")``, 512 ranks.  Any other world size raises.  ``data`` is the
+  FSDP axis, ``model`` the TP/EP axis, ``pod`` pure DP whose only
+  traffic is the per-step gradient all-reduce.  Building one in one
+  process needs a fake process group (``FakeStore``, backend
+  ``"fake"``), which the caller starts: it gives shapes, not execution;
+* ``fleet_device_mesh(fleet)``: the one-axis ``("data",)`` mesh of a
+  ``FleetMesh``'s ranks, in the same order, so a ``Shard(0)`` placement
+  gives rank r the instances ``core.distributed.local_block`` gives it.
+
+Each is on the card unless the caller names the CPU (``device``).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import tempfile
@@ -138,3 +162,48 @@ def spawn_fleet(fn, world_size: int, backend: str, device,
         with open(os.path.join(run_dir, f"rank{r}.pkl"), "rb") as f:
             results.append(pickle.load(f))
     return results
+
+
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), device=None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the process group
+    (initialized by the caller, or from the ``torchrun`` environment),
+    on this rank's current CUDA device unless ``device`` names the CPU;
+    raises without a card."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        # a CUDA context on the device the rank chose (gloo ranks share
+        # cuda:0): init_device_mesh would pick LOCAL_RANK's card otherwise
+        torch.cuda.init()
+    return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The ``(16, 16)`` ``("data", "model")`` mesh of 256 ranks, or with
+    ``multi_pod`` the ``(2, 16, 16)`` ``("pod", "data", "model")`` mesh of
+    512; raises, naming the shape and the world size, on any other world
+    size."""
+    import torch.distributed as dist
+    device = resolve_device(device)
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    need = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != need:
+        raise RuntimeError(
+            f"production mesh {shape} over {axes} needs a world of {need} "
+            f"ranks, the process group has "
+            f"{'none' if world is None else world}")
+    return make_test_mesh(shape, axes, device)
+
+
+def fleet_device_mesh(fleet: FleetMesh):
+    """The one-axis ``DeviceMesh`` of ``fleet``'s ranks (rank r at
+    position r, the axis named as the fleet's), on the fleet's device."""
+    return make_test_mesh((fleet.size,), fleet.axis_names, fleet.device)

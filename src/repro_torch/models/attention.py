@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch.distribution.sharding import constrain, like
 from repro_torch.models import common
 from repro_torch.models.common import apply_rope
 
@@ -49,27 +50,39 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 512,
     assert skv % chunk == 0, (skv, chunk)
     dev = q.device
 
-    qf = q.float() / math.sqrt(dk)
+    qf = _batch_only(q.float() / math.sqrt(dk))
     q_pos = q_offset + torch.arange(sq, device=dev)
-    m = torch.full((b, hkv, g, sq), -math.inf, device=dev)
-    den = torch.zeros((b, hkv, g, sq), device=dev)
-    acc = torch.zeros((b, hkv, g, sq, dv), device=dev)
+    m = like(torch.full((b, hkv, g, sq), -math.inf, device=dev), q)
+    den = like(torch.zeros((b, hkv, g, sq), device=dev), q)
+    acc = like(torch.zeros((b, hkv, g, sq, dv), device=dev), q)
     for c in range(skv // chunk):
-        kb = k[:, :, c * chunk:(c + 1) * chunk].float()
-        vb = v[:, :, c * chunk:(c + 1) * chunk].float()
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb)
+        kb = _batch_only(k[:, :, c * chunk:(c + 1) * chunk].float())
+        vb = _batch_only(v[:, :, c * chunk:(c + 1) * chunk].float())
+        s = _grouped_bmm(qf, kb.transpose(-1, -2))        # [B,H,G,Sq,chunk]
         if causal:
             k_pos = c * chunk + torch.arange(chunk, device=dev)
-            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, MASK_VALUE)
+            s = torch.where(like(q_pos[:, None] >= k_pos[None, :], s), s,
+                            MASK_VALUE)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         scale = torch.exp(m - m_new)
         den = den * scale + p.sum(dim=-1)
-        acc = acc * scale[..., None] + torch.einsum("bhgqk,bhkd->bhgqd",
-                                                    p, vb)
+        acc = acc * scale[..., None] + _grouped_bmm(p, vb)
         m = m_new
     out = acc / torch.clamp(den, min=1e-30)[..., None]
-    return out.to(q.dtype)
+    return _batch_only(out.to(q.dtype))
+
+
+def _grouped_bmm(a, b):
+    """a [B, H, G, M, K] @ b [B, H, K, N] -> [B, H, G, M, N], each kv
+    head's G query groups sharing its b: the reference's einsums as one
+    ``bmm``, every reshape between two batch-only constraints (forward
+    and gradient) under a sharding policy."""
+    bb, h, g, m, k = a.shape
+    n = b.shape[-1]
+    out = torch.bmm(_batch_only(_batch_only(a).reshape(bb * h, g * m, k)),
+                    _batch_only(_batch_only(b).reshape(bb * h, k, n)))
+    return _batch_only(_batch_only(out).reshape(bb, h, g, m, n))
 
 
 def _valid(cache_len, s: int, device):
@@ -116,6 +129,23 @@ def _write(cache: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor,
 
 # ------------------------------------------------------------------- GQA ----
 
+def _batch_only(x):
+    """``x`` with its batch (dim 0) sharded and every other dim whole
+    under a sharding policy (the identity without one), forward and
+    gradient: DTensor refuses to merge batch and heads into one dim when
+    both are sharded, and may pick such placements for a gradient."""
+    return constrain(x, "batch", *[None] * (x.ndim - 1))
+
+
+def _heads_whole(x):
+    """A projection's output [B, S, heads * d] with its batch sharded
+    and its heads whole under a sharding policy (the identity without
+    one): DTensor cannot split a sharded dim into heads the mesh axis
+    does not divide, nor let the attention's einsums flatten batch and
+    heads when both are sharded."""
+    return constrain(x, "batch", None, None)
+
+
 def gqa_spec(d_model: int, n_heads: int, n_kv_heads: int,
              d_head: int) -> dict:
     return dict(wq=("dense", d_model, n_heads * d_head),
@@ -137,16 +167,20 @@ def gqa_forward(p, x, *, n_heads: int, n_kv_heads: int, d_head: int,
     (prefill) path, k and v for the cache."""
     b, s, _ = x.shape
     g = n_heads // n_kv_heads
-    q = (x @ p["wq"]).reshape(b, s, n_kv_heads, g, d_head)
-    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, d_head)
-    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, d_head)
+    q = _batch_only(_heads_whole(x @ p["wq"]).reshape(b, s, n_kv_heads, g,
+                                                      d_head))
+    k = _batch_only(_heads_whole(x @ p["wk"]).reshape(b, s, n_kv_heads,
+                                                      d_head))
+    v = _batch_only(_heads_whole(x @ p["wv"]).reshape(b, s, n_kv_heads,
+                                                      d_head))
     q = apply_rope(q.permute(0, 2, 3, 1, 4), positions[:, None, None, :],
                    rope_theta)                       # [B,Hkv,G,S,Dh]
     k = apply_rope(k.permute(0, 2, 1, 3), positions[:, None, :],
                    rope_theta)                       # [B,Hkv,S,Dh]
     v = v.permute(0, 2, 1, 3)
     out = chunked_attention(q, k, v, causal=causal, chunk=min(chunk, s))
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, n_heads * d_head)
+    out = _heads_whole(out.permute(0, 3, 1, 2, 4).reshape(b, s,
+                                                          n_heads * d_head))
     return out @ p["wo"], (k, v)
 
 
@@ -210,7 +244,7 @@ def _mla_q(p, x, cfg: MLAConfig):
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     q = (x @ p["wq_a"]) @ p["wq_b"] if cfg.q_lora_rank else x @ p["wq"]
-    q = q.reshape(b, s, h, dn + dr)
+    q = _batch_only(_heads_whole(q).reshape(b, s, h, dn + dr))
     return q[..., :dn], q[..., dn:]            # nope [B,S,H,dn], rope
 
 
@@ -225,11 +259,12 @@ def mla_forward(p, x, cfg: MLAConfig, positions, causal: bool = True,
     q_rope = apply_rope(q_rope.permute(0, 2, 1, 3), positions[:, None, :],
                         cfg.rope_theta)                    # [B,H,S,dr]
 
-    ckv = x @ p["wkv_a"]                                   # [B,S,lora+dr]
+    ckv = _heads_whole(x @ p["wkv_a"])                     # [B,S,lora+dr]
     c_kv, k_rope = ckv[..., :cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
     k_rope = apply_rope(k_rope[:, None], positions[:, None, :],
                         cfg.rope_theta)                    # [B,1,S,dr]
-    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, dn + dv)
+    kv = _batch_only(_heads_whole(c_kv @ p["wkv_b"]).reshape(b, s, h,
+                                                             dn + dv))
     k_nope, v = kv[..., :dn], kv[..., dn:]
 
     q = torch.cat([q_nope.permute(0, 2, 1, 3), q_rope], dim=-1)
@@ -237,7 +272,7 @@ def mla_forward(p, x, cfg: MLAConfig, positions, causal: bool = True,
                    k_rope.expand(b, h, s, dr)], dim=-1)    # [B,H,S,dn+dr]
     out = chunked_attention(q[:, :, None], k, v.permute(0, 2, 1, 3),
                             causal=causal, chunk=min(chunk, s))[:, :, 0]
-    out = out.permute(0, 2, 1, 3).reshape(b, s, h * dv)
+    out = _heads_whole(out.permute(0, 2, 1, 3).reshape(b, s, h * dv))
     return out @ p["wo"], (c_kv, k_rope[:, 0])
 
 

@@ -28,6 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import generator
+from repro_torch.distribution.sharding import like, replicate
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32):
@@ -72,7 +75,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary embedding of x [..., S, D] at positions [..., S]
     (broadcastable), in float32 and cast back to ``x``'s dtype; the two
     rotated halves are the first and second half of D."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)
+    inv = like(rope_freqs(x.shape[-1], theta, x.device), x)
     ang = positions[..., None].float() * inv                 # [..., S, D/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -90,10 +93,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     v = logits.shape[-1]
-    idx = labels[..., None].long()
+    idx = replicate(labels)[..., None].long()
     inside = (idx >= 0) & (idx < v)
-    gold = torch.where(inside, torch.gather(logits, -1, idx.clamp(0, v - 1)),
-                       0.0)[..., 0]
+    gold = torch.where(inside, torch.gather(replicate(logits), -1,
+                                            idx.clamp(0, v - 1)), 0.0)[..., 0]
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
@@ -111,8 +114,27 @@ def count_params(params) -> int:
 #   ("normal", shape, scale)  standard normal times scale
 #   ("zeros", shape)
 #   ("ones", shape)
-# ``materialize`` draws it; ``spec_shapes`` gives the shapes a converted
-# pytree must have.
+# ``materialize`` draws it (``draw``: from a seed, or on the ``meta``
+# device its shapes only, the port's ``jax.eval_shape`` of an init);
+# ``spec_shapes`` gives the shapes a converted pytree must have.
+
+def draw(spec, seed: int, device: torch.device, dtype=torch.float32):
+    """``materialize`` from a generator seeded with ``seed`` on
+    ``device``; on ``meta``, empty tensors of the spec's shapes."""
+    if device.type == "meta":
+        return _map_spec(lambda s: torch.empty(s, dtype=dtype,
+                                               device=device),
+                         spec_shapes(spec))
+    return materialize(spec, generator(seed, device), dtype)
+
+
+def _map_spec(fn, shapes):
+    if isinstance(shapes, dict):
+        return {k: _map_spec(fn, v) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_map_spec(fn, v) for v in shapes]
+    return fn(shapes)
+
 
 def materialize(spec, gen: torch.Generator, dtype=torch.float32):
     if isinstance(spec, dict):

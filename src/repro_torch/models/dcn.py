@@ -35,9 +35,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch import generator, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core import vassoc
+from repro_torch.distribution.sharding import constrain
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.models import common
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -74,11 +75,11 @@ def _spec(cfg: RecsysConfig, table_scale: float) -> dict:
 def init(seed: int, cfg: RecsysConfig, table_scale: float = 0.01, *,
          device=None) -> DCNv2:
     """Random parameters drawn on ``device`` (default: the CUDA device;
-    raises without one) from a generator seeded with ``seed``."""
+    raises without one) from a generator seeded with ``seed``; on the
+    ``meta`` device, their shapes only."""
     dev = resolve_device(device)
-    tree = common.materialize(_spec(cfg, table_scale),
-                              generator(seed, dev),
-                              getattr(torch, cfg.dtype))
+    tree = common.draw(_spec(cfg, table_scale), seed, dev,
+                       getattr(torch, cfg.dtype))
     return DCNv2(tree, cfg)
 
 
@@ -118,19 +119,20 @@ def embed_lookup(table: torch.Tensor, sparse: torch.Tensor,
         out = out.reshape(b, f, cfg.embed_dim).to(table.dtype)
     else:
         out = torch.sum(table[gids.long()], dim=2)       # [B, F, D]
-    return out.reshape(b, f * cfg.embed_dim)
+    return constrain(out.reshape(b, f * cfg.embed_dim), "batch", None)
 
 
 def interact(params: DCNv2, dense: torch.Tensor, embeds: torch.Tensor,
              cfg: RecsysConfig) -> torch.Tensor:
     """Cross network + deep MLP -> final hidden [B, mlp[-1]]."""
     x0 = torch.cat([dense.to(embeds.dtype), embeds], dim=-1)
+    x0 = constrain(x0, "batch", None)
     x = x0
     for lp in params.cross:
         x = x0 * (x @ lp.w + lp.b) + x                    # DCN-v2 cross
     for lp in params.mlp:
         x = torch.relu(x @ lp.w + lp.b)
-    return x
+    return constrain(x, "batch", None)
 
 
 def forward(params: DCNv2, batch: Dict[str, torch.Tensor],
@@ -209,7 +211,8 @@ def make_train_step_hier(cfg: RecsysConfig, opt_cfg: AdamWConfig,
 
     def loss_from_embeds(params, embeds_flat, batch):
         # ``params``' leaves but the table are the ``rest`` differentiated
-        h = interact(params, batch["dense"], embeds_flat, cfg)
+        h = interact(params, batch["dense"],
+                     constrain(embeds_flat, "batch", None), cfg)
         logits = (h @ params.logit_w)[:, 0] + params.logit_b
         loss = bce(logits, batch["labels"])
         return loss, dict(loss=loss)
@@ -270,5 +273,6 @@ def retrieval_topk(params: DCNv2, batch: Dict[str, torch.Tensor],
     """Score the query batch against [N, mlp[-1]] candidates; top-k per
     query as (values [B, k], int32 indices [B, k])."""
     q = query_embedding(params, batch, cfg)               # [B, D]
-    values, indices = torch.topk(q @ candidates.T, k, dim=-1)
+    scores = constrain(q @ candidates.T, "batch", "tp")   # [B, N]
+    values, indices = torch.topk(scores, k, dim=-1)
     return values, indices.to(torch.int32)

@@ -36,8 +36,10 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch import generator, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import GNNConfig
+from repro_torch.distribution.sharding import (constrain,
+                                               under_current_policy)
 from repro_torch.kernels.segment_agg import ops as seg_ops
 from repro_torch.models import common
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -121,6 +123,7 @@ def _gat_layer(p, h, src, dst, n_nodes, n_heads, cfg, concat=True):
     scores = F.leaky_relu(s_src[src] + s_dst[dst], 0.2)   # [E, H]
     alpha = segment_softmax(scores, dst, n_nodes)
     msg = hw[src] * alpha[..., None]                      # [E, H, D]
+    msg = constrain(msg, "batch", None, None)
     d_head = hw.shape[-1]
     out = _segment_sum(cfg, msg.reshape(e, n_heads * d_head), dst, n_nodes)
     out = out.reshape(n_nodes, n_heads, d_head)
@@ -130,7 +133,8 @@ def _gat_layer(p, h, src, dst, n_nodes, n_heads, cfg, concat=True):
 # -------------------------------------------------------------------- GIN ---
 
 def _gin_layer(p, h, src, dst, n_nodes, cfg, learnable_eps=True):
-    agg = _segment_sum(cfg, h[src], dst, n_nodes)
+    msg = constrain(h[src], "batch", None)
+    agg = _segment_sum(cfg, msg, dst, n_nodes)
     eps = p.eps if learnable_eps else 0.0
     out = _mlp(p.mlp, (1.0 + eps) * h + agg)
     return _layer_norm(out)          # stands in for the reference BatchNorm
@@ -142,7 +146,7 @@ def _gatedgcn_layer(p, h, e, src, dst, n_nodes, cfg):
     """Bresson & Laurent gated graph conv with edge-feature recurrence."""
     e_new = h[src] @ p.A + h[dst] @ p.B + e @ p.C          # [E, D]
     gate = torch.sigmoid(e_new)
-    msg = gate * (h[src] @ p.V)
+    msg = constrain(gate * (h[src] @ p.V), "batch", None)
     num = _segment_sum(cfg, msg, dst, n_nodes)
     den = _segment_sum(cfg, gate, dst, n_nodes)
     h_new = h @ p.U + num / (den + 1e-6)
@@ -156,7 +160,7 @@ def _gatedgcn_layer(p, h, e, src, dst, n_nodes, cfg):
 def _interaction_layer(p, h, e, src, dst, n_nodes, cfg):
     """GraphCast/MeshGraphNet InteractionNetwork with residuals."""
     e = e + _mlp(p.edge_mlp, torch.cat([e, h[src], h[dst]], dim=-1))
-    agg = _segment_sum(cfg, e, dst, n_nodes)
+    agg = _segment_sum(cfg, constrain(e, "batch", None), dst, n_nodes)
     h_new = _mlp(p.node_mlp, torch.cat([h, agg], dim=-1))
     return h + h_new, e
 
@@ -199,11 +203,11 @@ def init(seed: int, cfg: GNNConfig, d_feat: int, n_out: int, *,
          device=None) -> GNN:
     """Random parameters for ``cfg.kind`` with input dim d_feat and output
     n_out, drawn on ``device`` (default: the CUDA device; raises without
-    one) from a generator seeded with ``seed``."""
+    one) from a generator seeded with ``seed``; on the ``meta`` device,
+    their shapes only."""
     dev = resolve_device(device)
-    tree = common.materialize(_spec(cfg, d_feat, n_out),
-                              generator(seed, dev),
-                              getattr(torch, cfg.dtype))
+    tree = common.draw(_spec(cfg, d_feat, n_out), seed, dev,
+                       getattr(torch, cfg.dtype))
     return GNN(tree, cfg)
 
 
@@ -239,8 +243,8 @@ def _layer(cfg: GNNConfig, lp, fn, *args):
     if cfg.remat and torch.is_grad_enabled() and (
             any(p.requires_grad for p in lp.parameters())
             or any(a.requires_grad for a in args)):
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(under_current_policy(fn),
+                                                 *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -261,14 +265,14 @@ def forward(params: GNN, cfg: GNNConfig,
                                  concat=not last)
                 return out if last else F.elu(out)
 
-            h = _layer(cfg, lp, blk, h)
+            h = constrain(_layer(cfg, lp, blk, h), "batch", None)
         return h @ params.head
     if cfg.kind == "gin":
         for lp in params.layers:
             def blk(h, lp=lp):
                 return _gin_layer(lp, h, src, dst, n, cfg, cfg.learnable_eps)
 
-            h = _layer(cfg, lp, blk, h)
+            h = constrain(_layer(cfg, lp, blk, h), "batch", None)
         return h @ params.head
     if cfg.kind == "gatedgcn":
         h = h @ params.w_in
@@ -279,6 +283,8 @@ def forward(params: GNN, cfg: GNNConfig,
                 return _gatedgcn_layer(lp, h, e, src, dst, n, cfg)
 
             h, e = _layer(cfg, lp, blk, h, e)
+            h = constrain(h, "batch", None)
+            e = constrain(e, "batch", None)
         return h @ params.head
     if cfg.kind == "graphcast":
         h = _mlp(params.w_in, h)
@@ -290,6 +296,8 @@ def forward(params: GNN, cfg: GNNConfig,
                 return _interaction_layer(lp, h, e, src, dst, n, cfg)
 
             h, e = _layer(cfg, lp, blk, h, e)
+            h = constrain(h, "batch", None)
+            e = constrain(e, "batch", None)
         return _mlp(params.head, h)
     raise ValueError(cfg.kind)
 

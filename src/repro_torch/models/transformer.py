@@ -35,8 +35,10 @@ from typing import Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch import generator, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
+from repro_torch.distribution.sharding import (constrain, like, replicate,
+                                               under_current_policy)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import moe as moe_mod
@@ -99,9 +101,10 @@ def _spec(cfg: LMConfig) -> dict:
 def init(seed: int, cfg: LMConfig, *, device=None) -> common.ParamTree:
     """Random parameters in ``cfg.dtype``, drawn on ``device`` (default:
     the CUDA device; raises without one) from a generator seeded with
-    ``seed``; their count is ``cfg.n_params``."""
+    ``seed``; their count is ``cfg.n_params``.  On the ``meta`` device,
+    their shapes only."""
     dev = resolve_device(device)
-    tree = common.materialize(_spec(cfg), generator(seed, dev), _dtype(cfg))
+    tree = common.draw(_spec(cfg), seed, dev, _dtype(cfg))
     return common.ParamTree(tree)
 
 
@@ -145,7 +148,7 @@ def _layer_forward(lp, x, cfg: LMConfig, positions):
             d_head=cfg.d_head, rope_theta=cfg.rope_theta,
             positions=positions, chunk=cfg.attn_chunk)
         cache = dict(k=k, v=v)
-    x = x + attn_out
+    x = constrain(x + attn_out, "batch", None, None)
     h = rms_norm(x, lp["ln2"])
     if cfg.moe:
         f, aux = moe_mod.moe_forward(lp["ffn"], h, moe_config(cfg),
@@ -153,19 +156,22 @@ def _layer_forward(lp, x, cfg: LMConfig, positions):
     else:
         f = swiglu(h, lp["ffn"]["w_gate"], lp["ffn"]["w_up"],
                    lp["ffn"]["w_down"])
-        aux = torch.zeros((), device=x.device)
-    return x + f, aux, cache
+        aux = like(torch.zeros((), device=x.device), x)
+    return constrain(x + f, "batch", None, None), aux, cache
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    flat = params.embed.index_select(0, tokens.reshape(-1))
-    return flat.reshape(*tokens.shape, -1)
+    flat = replicate(replicate(params.embed).index_select(
+        0, replicate(tokens).reshape(-1)))
+    return constrain(flat.reshape(*tokens.shape, -1), "batch", None, None)
 
 
 def _logits(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     x = rms_norm(x, params.final_norm)
     head = params.embed if cfg.tie_embeddings else params.lm_head
-    return x @ head.T
+    logits = x @ head.T
+    spec = ("batch", None, "tp") if logits.ndim == 3 else ("batch", "tp")
+    return constrain(logits, *spec)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -178,8 +184,8 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig
     ``cfg.remat``, while autograd records, each layer keeps only its input
     and is recomputed in the backward."""
     b, s = tokens.shape
-    positions = _positions(b, s, tokens.device)
     x = _embed(params, tokens)
+    positions = like(_positions(b, s, tokens.device), x)
 
     def body(x, lp):
         x, a, _ = _layer_forward(lp, x, cfg, positions)
@@ -187,12 +193,13 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig
 
     remat = cfg.remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
-    aux = torch.zeros((), device=x.device)
+    aux = like(torch.zeros((), device=x.device), x)
     for lp in _layers(params):
         if remat:
             # no layer draws a random number: nothing to replay
             x, a = torch.utils.checkpoint.checkpoint(
-                body, x, lp, use_reentrant=False, preserve_rng_state=False)
+                under_current_policy(body), x, lp, use_reentrant=False,
+                preserve_rng_state=False)
         else:
             x, a = body(x, lp)
         aux = aux + a
@@ -236,12 +243,14 @@ def make_train_step(cfg: LMConfig, opt_cfg: AdamWConfig, lr_schedule=None):
             if b % nm:
                 raise ValueError(f"batch {b} is not a multiple of "
                                  f"num_microbatches {nm}")
-            leaves = common.tree_leaves(params)
-            acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                   for p in leaves]
-            loss = torch.zeros((), device=leaves[0].device)
+            # zeros_like keeps a sharded parameter's placements; a
+            # sharded batch is gathered before it is cut (its rows go
+            # back over the batch axes at the embedding's constraint)
+            acc = [torch.zeros_like(p, dtype=acc_dt)
+                   for p in common.tree_leaves(params)]
+            loss = None
             for i in range(nm):
-                mb = {k: v.reshape(nm, b // nm, *v.shape[1:])[i]
+                mb = {k: replicate(v).reshape(nm, b // nm, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 l, _, g = grad_fn(params, mb)
                 for a, x in zip(acc, common.tree_leaves(g)):
@@ -251,7 +260,7 @@ def make_train_step(cfg: LMConfig, opt_cfg: AdamWConfig, lr_schedule=None):
                     # reference's ``a + x.astype(acc_dt)``
                     a.add_(x if acc_dt == torch.float32 else x.to(acc_dt))
                 del g
-                loss = loss + l
+                loss = l if loss is None else loss + l
             grads = common.tree_unflatten(params, [a.div_(nm) for a in acc])
             loss = loss / nm
             metrics = dict(loss=loss, aux=torch.zeros_like(loss))

@@ -22,6 +22,7 @@ import math
 from typing import Any, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import tree_leaves, tree_map
 
@@ -43,8 +44,8 @@ def adamw_init(params) -> dict:
     the parameters' device."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+    # zeros_like keeps a sharded parameter's placements (a DTensor)
+    zeros32 = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return dict(m=tree_map(zeros32, params), v=tree_map(zeros32, params),
                 count=torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -53,7 +54,19 @@ def _global_norm(grads) -> torch.Tensor:
     sq = 0
     for g in tree_leaves(grads):
         sq = sq + torch.sum(torch.square(g.float()))
-    return torch.sqrt(sq)
+    norm = torch.sqrt(sq)
+    # sharded gradients (DTensors): the one collective of the update
+    return norm.full_tensor() if isinstance(norm, DTensor) else norm
+
+
+def _local(p, g, m, v):
+    """A leaf's parameter, gradient and moments as the tensors this rank
+    updates: the local shards of DTensors (the gradient first put under
+    its parameter's placements), the tensors themselves otherwise."""
+    if not isinstance(p, DTensor):
+        return p, g, m, v
+    g = g.redistribute(p.device_mesh, p.placements)
+    return tuple(x.to_local() for x in (p, g, m, v))
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -94,8 +107,9 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
     bc1 = 1.0 - _pow32(cfg.b1, t)
     bc2 = 1.0 - _pow32(cfg.b2, t)
 
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(state["m"]), tree_leaves(state["v"])):
+        p, g, m, v = _local(*leaf)
         flat = [x.reshape(-1) for x in (p, g, m, v)]
         for lo in range(0, max(p.numel(), 1), CHUNK):
             ps, gs, ms, vs = (x[lo:lo + CHUNK] for x in flat)

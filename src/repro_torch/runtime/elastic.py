@@ -5,29 +5,38 @@ N_new.  Checkpoints are device-agnostic numpy trees
 (``checkpoint/ckpt.py``), so an elastic restart is:
 
   1. restore the checkpoint (each leaf on the template's device, or the
-     ``device`` asked for);
+     ``device`` asked for, or each rank's block of it under ``shardings``);
   2. resize the fleet with ``rebalance_instances``;
   3. resume the step loop.
 
 ``rebalance_instances`` changes the INSTANCE count: a grown fleet gets
 fresh empty hierarchies for the new ids; a shrunk fleet folds its surplus
 instances' state into the survivors by semiring merge (no update is lost —
-associativity is exactly what makes this legal).  The fleet lives on one
-card, so the reference's ``sharding`` argument (re-placing the result on a
-mesh) has no counterpart here; ``core.distributed.instance_assignment``
-keeps the rendezvous hash for a fleet spread over devices.
+associativity is exactly what makes this legal).  It resizes the whole
+fleet: a fleet of DTensors sharded on the instance dim (a restore under
+``shardings``) is first joined on every rank.  With ``sharding`` (a
+``distribution.sharding.Sharding``, ``Shard(0)`` over the fleet's
+``("data",)`` mesh) each rank then keeps its block of the result, a
+DTensor on the mesh's device, as the reference ``device_put``s it.
+The join is one ``all_reduce`` a leaf over the mesh (each rank adds its
+block into zeros; exact, as every other element it adds is 0): gloo,
+which lets ranks share a card, takes ``all_reduce`` on CUDA tensors but
+not ``all_gather``.  ``core.distributed.instance_assignment`` keeps the
+rendezvous hash for a fleet spread over devices.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core import assoc, hier, stream
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core.assoc import SENTINEL, AssocSegment
 from repro_torch.core.hier import HierAssoc
 from repro_torch.core.semiring import Semiring
+from repro_torch.distribution import sharding as sharding_mod
 
 
 def _grow_last_layer(states: HierAssoc, extra: int,
@@ -62,15 +71,46 @@ def _merge_instance_into(states: HierAssoc, src: int, dst: int,
     d.n_updates.copy_(d.n_updates + s.n_updates)
 
 
+def _joined(x: DTensor) -> torch.Tensor:
+    """The whole tensor of a DTensor sharded over a one-axis mesh, on
+    every rank: each rank's block added into zeros by one
+    ``all_reduce``."""
+    import torch.distributed as dist
+    mesh = x.device_mesh
+    if mesh.ndim != 1:
+        raise ValueError(f"a sharded fleet lives on a one-axis mesh, not "
+                         f"{mesh.mesh_dim_names}")
+    local = x.to_local()
+    if x.placements[0] == Replicate():
+        return local
+    whole = torch.zeros(x.shape, dtype=x.dtype, device=local.device)
+    sharding = sharding_mod.Sharding(mesh, tuple(x.placements))
+    whole[sharding_mod.local_slices(x.shape, sharding)] = local
+    dist.all_reduce(whole, group=mesh.get_group())
+    return whole
+
+
 def rebalance_instances(states: HierAssoc, n_new: int,
-                        sr: Semiring = sr_mod.PLUS_TIMES) -> HierAssoc:
+                        sr: Semiring = sr_mod.PLUS_TIMES,
+                        sharding=None) -> HierAssoc:
     """Resize an instance-batched fleet to ``n_new`` instances; returns a
-    new state on the fleet's device.
+    new state on the fleet's device, or under ``sharding`` (each rank's
+    block, DTensors).  A fleet of DTensors is joined first (one
+    ``all_reduce`` a leaf; every rank must call).
 
     Grow: append empty hierarchies (new ids start cold).
     Shrink: surplus instance i >= n_new folds into instance i % n_new by
     semiring merge — associativity makes the fold exact.
     """
+    if isinstance(states.spills, DTensor):
+        states = hier.map_state(_joined, states)
+    out = _resize(states, n_new, sr)
+    if sharding is not None:
+        out = hier.map_state(lambda x: sharding_mod.place(x, sharding), out)
+    return out
+
+
+def _resize(states: HierAssoc, n_new: int, sr: Semiring) -> HierAssoc:
     n_old = states.layers[0].hi.shape[0]
     if n_new == n_old:
         return states

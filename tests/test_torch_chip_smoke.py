@@ -302,3 +302,37 @@ def test_analysis_phase_on_cpu(tmp_path):
     assert set(tk["entries"]) >= {"stream.ingest_instances",
                                   "service.ingest", "service.point_query",
                                   "hier.update", "hier.flush"}
+
+
+def test_sharding_phase_on_cpu(tmp_path):
+    """Phase 17 at smoke size on gloo ranks on the CPU (the plain kernel
+    versions): (a) a fleet of 8 instances checkpointed at round 4 of 8,
+    restored under ``Shard(0)`` on P = 2 and 4 ranks, grown to 16, the 4
+    remaining rounds ingested: the blocks joined equal one process's
+    restore -> resize -> rounds; (b) phi3-mini's smoke step on a (2, 2)
+    CPU mesh equal to the unsharded step; (c) both production meshes
+    under a fake group, shapes only."""
+    import os
+    from repro_torch.launch import ingest
+    kw = dict(block_size=32, cuts="64,256,1024", scale=10, device="cpu")
+    args = chip_smoke.ingest_args(instances=8, blocks=32, rounds=8,
+                                  ckpt_every=4, **kw)
+    args.ckpt_dir = str(tmp_path / "fleet")
+    ingest.run_with_state(args)
+    assert sorted(os.listdir(args.ckpt_dir)) == ["step_4", "step_8"]
+    res = chip_smoke.sharding_phase(
+        torch, args, args.ckpt_dir, 4, "cpu", "cpu", str(tmp_path),
+        mesh_runs=[("gloo", (2, 2))], jobs=(chip_smoke.MESH_JOBS[0],),
+        n_new=16)
+    # 4 blocks of 32 a round: 4 rounds of 8 instances, then 4 of 16
+    assert res["fleet"]["counter"] == (8 + 16) * 4 * 4 * 32
+    assert [r["ranks"] for r in res["fleet"]["runs"]] == [2, 4]
+    for r in res["fleet"]["runs"]:
+        assert r["merge_multi"] == 0                # plain versions
+        assert r["peak_gib"] == [None] * r["ranks"]  # the card only
+    (lm,) = res["lm"]
+    assert lm["mesh"] == [2, 2] and lm["backend"] == "gloo"
+    assert abs(lm["loss"] - lm["unsharded_loss"]) < chip_smoke.MESH_LOSS_TOL
+    assert lm["param_excess"] <= chip_smoke.MESH_LR / 10
+    assert [p["mesh"] for p in res["production"]] == [[16, 16], [2, 16, 16]]
+    assert all(p["leaves"] > 100 for p in res["production"])

@@ -392,3 +392,54 @@ def test_analysis_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_sharding_modules_import_no_jax_and_default_to_cuda(monkeypatch,
+                                                            tmp_path):
+    """The sharding layer (``distribution``, the meshes, the batch
+    sharding) imports neither JAX nor anything of the JAX package (each
+    file, and in a fresh process); ``make_test_mesh`` and
+    ``make_production_mesh`` build on the card unless asked for the CPU
+    and raise without one, before touching a process group; a restore
+    under a sharding of a CUDA mesh raises without a card, and under a
+    device and shardings at once."""
+    for name in ("distribution/__init__.py", "distribution/sharding.py",
+                 "launch/mesh.py", "data/pipeline.py", "runtime/elastic.py",
+                 "checkpoint/ckpt.py"):
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "import repro_torch.distribution.sharding\n"
+            "import repro_torch.launch.mesh, repro_torch.data.pipeline\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+    from torch.distributed.tensor import Shard
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core import distributed
+    from repro_torch.distribution import sharding
+    from repro_torch.launch import mesh
+    fleet = distributed.create_instances(2, (64, 256), 32, device="cpu")
+    save(str(tmp_path), 1, fleet)
+
+    class CudaMesh:                     # a one-rank CUDA mesh's view
+        device_type, ndim = "cuda", 1
+
+        def get_coordinate(self):
+            return [0]
+
+        def size(self, dim=0):
+            return 1
+
+    cuda = sharding.Sharding(CudaMesh(), (Shard(0),))
+    with pytest.raises(ValueError, match="not both"):
+        restore(str(tmp_path), 1, fleet, device="cpu", shardings=cuda)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (mesh.make_test_mesh, mesh.make_production_mesh,
+                 lambda: restore(str(tmp_path), 1, fleet, shardings=cuda)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
