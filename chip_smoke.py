@@ -263,10 +263,32 @@ which the node-tiled kernel read.
    configs, DCN-v2 and GraphCast on ``meta`` placed on it with the local
    shape its spec gives — shapes only, nothing runs.  Rehearse with
    ``tests/test_torch_chip_smoke.py::test_sharding_phase_on_cpu``.
+18. the dry-run tooling (``dryrun_phase``): (a) on the card, through
+   ``launch/cells.lower_cell``: the D4M ``ingest_small``, ``ingest_wide``
+   and ``query`` cells at ``d4m_stream.config()`` on the kernel route
+   (the fleet's one-rank mesh; ``merge_multi`` launches) and
+   ``smollm-360m``'s train step at 4 x 1024 in float32 on a (1, 1) nccl
+   mesh; each cell's recorded call (``cost_analysis``,
+   ``memory_analysis``, the collectives of ``as_text``) and the same call
+   timed (median of 3 after a warm-up, each ended by a synchronize); the
+   roofline bound at the dtype's peak (``roofline/terms.py``) must not
+   exceed the measured time; the fraction, its dominant term, the useful
+   fraction (null for a cell with no matrix-class flop: the D4M ones),
+   the recorded peak beside ``max_memory_allocated``; (b) on
+   the machine's CPU, one child process a cell, started before (a) and
+   run beside it: ``dryrun.run_cell`` on the production meshes under a
+   fake group of 256 and 512 ranks for smollm-360m's and granite-moe's
+   ``train_4k`` (granite's also on ``multi``), smollm's ``prefill_32k``
+   and ``decode_32k`` and a ``long_500k`` skip (the other three archs'
+   ``train_4k`` cells take minutes each: the dry-run CLI runs them):
+   every status ``ok`` or ``skip``, collective bytes above 0,
+   ``fits_hbm`` printed.  Rehearse
+   with ``tests/test_torch_chip_smoke.py::test_dryrun_phase_on_cpu``.
 
-It prints phase 13's, 14's, 15's, 16's and 17's numbers as one JSON line
-each (``{"serve": ...}``, ``{"train_lm": ...}``, ``{"stages": ...}``,
-``{"analysis": ...}``, ``{"sharding": ...}``), the card line, one JSON
+It prints phase 13's to 18's numbers as one JSON line each
+(``{"serve": ...}``, ``{"train_lm": ...}``, ``{"stages": ...}``,
+``{"analysis": ...}``, ``{"sharding": ...}``, ``{"dryrun": ...}``), the
+card line, one JSON
 line with every kernel's numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
@@ -277,8 +299,9 @@ carries ``phase12_launches``, phase 12's launches summed over each
 fleet's ranks, ``phase9_query_launches`` (phase 9's query batches: the
 warm-up's eager batch, then replays; a captured graph's launches are
 counted at each replay), ``phase9_replay_launches`` and
-``phase15_launches_per_replay``, and ``phase17_launches`` (phase 17
-(a)'s, summed over each P's ranks).
+``phase15_launches_per_replay``, ``phase17_launches`` (phase 17
+(a)'s, summed over each P's ranks) and ``phase18_launches`` (phase 18
+(a)'s D4M cells: recorded, warm-up and timed calls).
 """
 from __future__ import annotations
 
@@ -294,8 +317,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-OPS_PER_S = 67e12              # H100 SXM float32 rate outside the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+try:            # the card's rates live in one place: roofline/terms.py
+    from repro_torch.roofline.terms import H100_F32_FLOPS, HW_H100
+except ImportError:         # not a checkout: main() says so and exits 2
+    H100_F32_FLOPS, HW_H100 = None, dict(hbm_bw=None)
+HBM_BYTES_PER_S = HW_H100["hbm_bw"]     # H100 SXM device memory
+OPS_PER_S = H100_F32_FLOPS      # H100 SXM float32 rate outside the tensor cores
 TOL = 1e-4                     # registry merge rtol
 # 16-bit merges: the order of 16-bit adds may differ from the plain
 # version's, each add rounding (rtol, atol the same)
@@ -3572,19 +3600,6 @@ MESH_AXES = ("data", "model")
 MESH_JOBS = tuple((arch, True, 8, 32) for arch in (
     "phi3-mini-3.8b", "deepseek-v2-236b", "granite-moe-3b-a800m",
     "mistral-nemo-12b", "smollm-360m")) + (("smollm-360m", False, 4, 1024),)
-EXPERT_TP_ARCH = "granite-moe-3b-a800m"     # moe_shard "tp"
-
-
-def mesh_jobs(shape) -> tuple:
-    """Phase 17 (b)'s jobs on a mesh of ``shape``: ``MESH_JOBS``, less
-    granite-moe's expert-TP step where a model axis shards its experts'
-    FFN: torch 2.11's DTensor computes the backward of the dispatch's
-    ``index_select`` from a sharded gradient and the whole index (an
-    ``index_add_`` size error; PERF.md).  The tests (torch 2.13) run it
-    on a (2, 2) mesh."""
-    if shape[-1] == 1:
-        return MESH_JOBS
-    return tuple(j for j in MESH_JOBS if j[0] != EXPERT_TP_ARCH)
 
 
 GRAPHCAST_D_FEAT = 100          # GNN_SHAPES["ogb_products"]["d_feat"]
@@ -3982,7 +3997,7 @@ def sharding_phase(torch, args, ckpt_dir: str, step: int, device, card: str,
                    tmp: str, *, mesh_runs, jobs=None,
                    n_new: int = SHARD_GROW) -> dict:
     """Phase 17: (a) ``shard_fleet_check``; (b) ``lm_mesh_check`` of
-    ``jobs`` (default: ``mesh_jobs(shape)``) on each ``(backend, shape)``
+    ``jobs`` (default: ``MESH_JOBS``) on each ``(backend, shape)``
     of ``mesh_runs``; (c) ``production_meshes``.  Returns the
     ``{"sharding": ...}`` record."""
     t0 = time.perf_counter()
@@ -3990,7 +4005,7 @@ def sharding_phase(torch, args, ckpt_dir: str, step: int, device, card: str,
                                        device, tmp, card))
     res["lm"] = [rec for backend, shape in mesh_runs
                  for rec in lm_mesh_check(torch, backend, shape,
-                                          jobs or mesh_jobs(shape), device,
+                                          jobs or MESH_JOBS, device,
                                           tmp, card)]
     res["production"] = production_meshes(
         "cuda" if torch.device(device).type == "cuda" else "cpu", tmp)
@@ -4001,6 +4016,248 @@ def sharding_phase(torch, args, ckpt_dir: str, step: int, device, card: str,
               f"GraphCast each as its spec gives", flush=True)
     res["wall_s"] = time.perf_counter() - t0
     return res
+
+
+# ------------------------------------------------------------- phase 18 --
+
+# (a) on the card: (arch, shape, variant); the LM cell cut to phase 17's
+# 4 x 1024 (``DRYRUN_LM_CUT``)
+DRYRUN_CARD_CELLS = (("d4m-stream", "ingest_small", "use_kernel=1"),
+                     ("d4m-stream", "ingest_wide", "use_kernel=1"),
+                     ("d4m-stream", "query", "use_kernel=1"),
+                     ("smollm-360m", "train_4k", "dtype=float32"))
+DRYRUN_LM_CUT = dict(batch=4, seq=1024)
+DRYRUN_REPS = 3                 # timed calls a cell, after one warm-up
+# (b) on the machine's CPU, the production meshes under a fake group:
+# (mesh, arch, shape, variant).  Cut to smollm-360m and granite-moe: a
+# full-size train_4k cell records in one to four minutes of one core, so
+# phi3-mini's, mistral-nemo's and deepseek-v2's train_4k stay with the
+# dry-run CLI (PERF.md)
+DRYRUN_HOST_CELLS = (
+    ("single", "smollm-360m", "train_4k", "baseline"),
+    ("single", "granite-moe-3b-a800m", "train_4k", "baseline"),
+    ("multi", "granite-moe-3b-a800m", "train_4k", "baseline"),
+    ("single", "smollm-360m", "prefill_32k", "baseline"),
+    ("single", "smollm-360m", "decode_32k", "baseline"),
+    ("single", "smollm-360m", "long_500k", "baseline"))
+DRYRUN_HOST_TIMEOUT = 900       # seconds a host cell may take
+
+
+def dryrun_host_child(cells_, outdir: str, path: str) -> None:
+    """Phase 18 (b)'s child process: ``dryrun.run_cell`` for each (mesh,
+    arch, shape, variant) of ``cells_`` (one mesh kind: the fake group is
+    process-global), its records as JSON in ``path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    recs = [dryrun.run_cell(arch, shape, kind, variant, outdir,
+                            verbose=False)
+            for kind, arch, shape, variant in cells_]
+    dist.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(recs, f)
+
+
+def start_host_cells(cells_, tmp: str) -> list:
+    """Phase 18 (b): one spawned child a cell, all started at once."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    outdir = os.path.join(tmp, "dryrun")
+    procs = []
+    for i, cell in enumerate(cells_):
+        path = os.path.join(tmp, f"dryrun_host_{i}.json")
+        proc = ctx.Process(target=dryrun_host_child,
+                           args=((cell,), outdir, path))
+        proc.start()
+        procs.append((cell, proc, path))
+    return procs
+
+
+def join_host_cells(procs, timeout: float) -> list:
+    """Phase 18 (b)'s records, each printed as it is joined; a child that
+    fails or outlives ``timeout`` (seconds from now, for them all), or a
+    cell not ``ok`` or ``skip``, or one with no collective bytes, fails
+    the phase once every child is joined."""
+    deadline = time.monotonic() + timeout
+    out, bad = [], []
+    for cell, proc, path in procs:
+        proc.join(max(deadline - time.monotonic(), 1.0))
+        if proc.is_alive():
+            proc.terminate()
+            bad.append(f"{cell}: still running after {timeout:.0f} s")
+            continue
+        if proc.exitcode != 0:
+            bad.append(f"{cell}: its process exited {proc.exitcode}")
+            continue
+        with open(path) as f:
+            (rec,) = json.load(f)
+        out.append(rec)
+        print(host_line(rec), flush=True)
+        if rec["status"] not in ("ok", "skip"):
+            bad.append(f"{cell}: {rec['status']} {rec.get('error')}\n"
+                       f"{rec.get('traceback', '')}")
+        elif rec["status"] == "ok" and \
+                not rec["collective_bytes_per_device"] > 0:
+            bad.append(f"{cell}: no collective bytes on a "
+                       f"{rec['n_devices']}-rank mesh")
+    if bad:
+        raise AssertionError("phase 18 (b): " + "\n".join(bad))
+    return out
+
+
+def host_line(r: dict) -> str:
+    line = f"(b) [{r['mesh']}] {r['arch']} {r['shape']}: {r['status']}"
+    if r["status"] == "ok":
+        rf = r["roofline"]
+        line += (f", fits_hbm {r['fits_hbm']}, coll/dev "
+                 f"{r['collective_bytes_per_device']:.4g} B, compute "
+                 f"{rf['compute_s']:.4g} s memory {rf['memory_s']:.4g} s "
+                 f"collective {rf['collective_s']:.4g} s "
+                 f"({rf['dominant']}), useful "
+                 f"{_fraction(r['useful_fraction'])}")
+    elif r["status"] == "skip":
+        line += f" ({r['reason']})"
+    else:
+        line += f" ({r.get('error')})"
+    return line + (f"; lower {r.get('lower_s')} s, recorded in "
+                   f"{r.get('compile_s')} s, total {r.get('total_s')} s")
+
+
+def _fraction(x) -> str:
+    """A useful fraction as printed: null where no matrix-class flop was
+    recorded (a D4M cell), where the fraction says nothing."""
+    return "null" if x is None else f"{x:.3f}"
+
+
+def dryrun_card(torch, device, cells_, lm_cut: dict, reps: int, tmp: str,
+                card: str) -> list:
+    """Phase 18 (a): each cell through ``cells.lower_cell`` on the card — a
+    D4M cell on the fleet's one-rank mesh, an LM cell on a (1, 1) mesh of
+    the same one-rank group (nccl on the card, gloo on the CPU) — its
+    recorded call's cost, memory and collectives, and the same call timed
+    (median of ``reps`` after a warm-up, each on fresh clones of the
+    lowered arguments, ended by a synchronize) against the roofline bound
+    at the dtype's peak (``dryrun.hw_for``).  A bound above the measured
+    time fails: the count would overstate the work."""
+    import copy
+
+    import torch.distributed as dist
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import registry
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.roofline.hlo import collective_bytes_by_type
+    from repro_torch.roofline.terms import roofline_terms, useful_fraction
+    cuda = torch.device(device).type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{tmp}/dryrun_pg",
+                            rank=0, world_size=1)
+    out = []
+    try:
+        fleet = mesh_mod.make_fleet_mesh(backend, device)
+        dmesh = mesh_mod.make_test_mesh((1, 1), MESH_AXES, device)
+        for arch, shape, variant in cells_:
+            lm = arch_registry.family(arch) == "lm"
+            low, meta = cells.lower_cell(
+                arch, shape, dmesh if lm else fleet, variant, device=device,
+                **(lm_cut if lm else {}))
+            comp = low.compile()
+            _peak_reset(torch, device)
+            before = registry.launches()
+            t0 = time.perf_counter()
+            cost = comp.cost_analysis()                 # the recorded call
+            record_s = time.perf_counter() - t0
+            after = registry.launches()
+            mem = comp.memory_analysis()
+            coll, by_type = collective_bytes_by_type(comp.as_text())
+            terms = roofline_terms(cost["flops"], cost["bytes accessed"],
+                                   coll, hw=dryrun.hw_for(meta["dtype"]))
+            times = []
+            _peak_reset(torch, device)
+            for i in range(reps + 1):
+                args = copy.deepcopy(low.args)
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                comp(*args)
+                _sync(torch, device)
+                if i:
+                    times.append(time.perf_counter() - t0)
+                del args
+            ms, bound_ms = _median(times) * 1e3, terms.bound_s * 1e3
+            rec = dict(
+                arch=arch, shape=shape, variant=variant,
+                kind=meta["kind"], dtype=meta["dtype"],
+                tokens=meta["tokens"], flops=cost["flops"],
+                bytes=cost["bytes accessed"], coll=coll,
+                collectives=by_type, bound_ms=bound_ms,
+                dominant=terms.dominant, ms=ms,
+                ms_all=[t * 1e3 for t in times],
+                fraction=bound_ms / ms,
+                useful_fraction=(useful_fraction(meta["model_flops"],
+                                                 cost["flops"])
+                                 if cost["flops"] else None),
+                recorded_peak_bytes=mem.temp_size_in_bytes,
+                argument_bytes=mem.argument_size_in_bytes,
+                max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                      if cuda else None),
+                record_s=record_s,
+                recorded_launches={k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]})
+            if bound_ms > ms:
+                raise AssertionError(
+                    f"{arch} {shape}: roofline bound {bound_ms:.4f} ms > "
+                    f"measured {ms:.4f} ms — the count overstates the work "
+                    f"({rec})")
+            print(f"(a) {arch} {shape} [{variant}]: {ms:.3f} ms (median of "
+                  f"{reps}), bound {bound_ms:.4f} ms ({terms.dominant}), "
+                  f"fraction {rec['fraction']:.4f}, useful "
+                  f"{_fraction(rec['useful_fraction'])}, "
+                  f"flops {cost['flops']:.4g}"
+                  f" bytes {cost['bytes accessed']:.4g} coll {coll}; "
+                  f"recorded peak {mem.temp_size_in_bytes / 2**30:.3f} GiB,"
+                  f" max_memory_allocated "
+                  + (f"{rec['max_memory_allocated'] / 2**30:.3f} GiB"
+                     if cuda else "n/a") + f"; {card}", flush=True)
+            out.append(rec)
+            del low, comp
+            gc.collect()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dryrun_phase(torch, device, card: str, tmp: str, *,
+                 card_cells=DRYRUN_CARD_CELLS, host_cells=DRYRUN_HOST_CELLS,
+                 lm_cut=DRYRUN_LM_CUT, reps: int = DRYRUN_REPS,
+                 host_timeout: float = DRYRUN_HOST_TIMEOUT) -> dict:
+    """Phase 18: (b)'s children started first (they run on the host's
+    CPU while (a) runs on the card), then ``dryrun_card`` (a), then (b)'s
+    records joined: every cell ``ok`` or ``skip``, collective bytes above
+    0.  Returns the ``{"dryrun": ...}`` record; ``merge_multi`` holds (a)'s
+    launches."""
+    from repro_torch.kernels import registry
+    t0 = time.perf_counter()
+    procs = start_host_cells(host_cells, tmp)
+    try:
+        registry.reset_launches()
+        card_recs = dryrun_card(torch, device, card_cells, lm_cut, reps,
+                                tmp, card)
+        launches = registry.launches()
+    except BaseException:
+        for _, p, _ in procs:
+            p.terminate()
+        raise
+    host = join_host_cells(procs, host_timeout)
+    keep = ("arch", "shape", "mesh", "status", "fits_hbm", "roofline",
+            "collective_bytes_per_device", "collectives", "raw",
+            "useful_fraction", "memory_analysis", "compile_s", "total_s",
+            "reason")
+    return dict(card=card_recs,
+                host=[{k: r[k] for k in keep if k in r} for r in host],
+                merge_multi=launches["hier_merge.merge_multi"],
+                wall_s=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -4337,6 +4594,18 @@ def main() -> int:
             fault["resumed_at"], "cuda", card, tmp, mesh_runs=mesh_runs)
     fault_tmp.cleanup()
     print(f"phase 17 wall {sharded['wall_s']:.1f} s; {card}", flush=True)
+
+    phase("18 the dry-run tooling: D4M cells and smollm-360m's train step "
+          "recorded on the card against their roofline bound; the "
+          "production meshes' LM cells recorded on the host under a fake "
+          "group")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dried = dryrun_phase(torch, "cuda", card, tmp)
+    if dried["merge_multi"] == 0:
+        raise AssertionError("phase 18's D4M cells launched no merge_multi")
+    print(f"phase 18 wall {dried['wall_s']:.1f} s; {card}", flush=True)
     fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
                       for r in fleet["runs"]}
     fleet_launches.update({f"{s} gloo P=2": fleet[s]["merge_multi"]
@@ -4382,6 +4651,7 @@ def main() -> int:
     kernels[0]["phase17_launches"] = {
         f"gloo P={r['ranks']}": r["merge_multi"]
         for r in sharded["fleet"]["runs"]}
+    kernels[0]["phase18_launches"] = dried["merge_multi"]
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": served, "card": card}))
     print(json.dumps({"train_lm": trained, "card": card}))
@@ -4389,6 +4659,7 @@ def main() -> int:
     print(json.dumps({"analysis": {k: v for k, v in analysed.items()
                                    if k != "report"}, "card": card}))
     print(json.dumps({"sharding": sharded, "card": card}))
+    print(json.dumps({"dryrun": dried, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

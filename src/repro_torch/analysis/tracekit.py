@@ -65,19 +65,44 @@ J006  One (entry, signature) lowered under more than ``retrace_limit``
 **What the cost columns mean in the port** (per call, the mean over the
 recorded sequence):
 
-- ``flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count, which
-  covers the matrix-class ops (mm, bmm, addmm, convolution, attention)
-  only — the D4M entries report about 0, where XLA counts elementwise
-  work too;
+- ``flops``: each recorded op counted by the table
+  ``torch.utils.flop_counter.FlopCounterMode`` counts by
+  (``flop_registry``), which covers the matrix-class ops (mm, bmm, addmm,
+  convolution, attention) only: elementwise, norm, softmax, optimizer and
+  compare work counts 0, so the D4M entries report 0, where XLA counts
+  elementwise work too, and a roofline's compute term from this count is
+  low;
 - ``bytes_accessed``: for every op that moves data, the bytes of its
   tensor inputs read once plus its tensor outputs written once (views and
   allocations move none), plus, on the card, the bytes each CUDA kernel
   wrapper reports through ``kernels/registry.py`` (``ctypes`` launches
   dispatch no aten op) — the count ``chip_smoke.merge_bound`` makes;
-- ``peak_bytes``: on the CPU the high-water mark of the bytes the call's
-  ops allocate, tracked by the recorder (an output counts until its
-  tensor is freed); on the card the rise of
-  ``torch.cuda.max_memory_allocated`` over the call.
+- ``peak_bytes``: on the CPU (and on ``meta``) the high-water mark of
+  the bytes the call's ops allocate, tracked by the recorder (an output
+  counts until its tensor is freed); on the card the rise of
+  ``torch.cuda.max_memory_allocated`` over the call.  (An earlier
+  recorder ran ``FlopCounterMode`` as a second mode, under which an op's
+  temporaries outlived their last use by some 20 ops: the committed
+  budgets' ``peak_bytes``, recorded then, stand 1.5-3.2 times above the
+  smoke fleet's peaks now, while its ``flops`` and ``bytes_accessed``
+  are the same.)
+
+**A sharded call is counted for one rank.**  An op on DTensors is not
+recorded as such (its shapes are global): the recorder lets DTensor's own
+dispatch run it, and records the rank's local ops that come back, with
+their local shapes, and the collectives between them — the functional
+ones DTensor calls (``_c10d_functional.all_gather_into_tensor``,
+``all_reduce``, ``reduce_scatter_tensor``, ``all_to_all_single``, each
+with its per-device result) and the ``torch.distributed`` ones the fleet
+calls (``c10d.allreduce_``, ...).  The ops DTensor's sharding propagation
+runs on fake tensors at the global shape, or on ``meta`` tensors through
+an op's decomposition on a cache miss, are neither recorded nor counted
+in ``flops``.  Bytes count local shards, and a tensor's storage is told
+apart by its identity, not by its data pointer (0 for every ``meta``
+tensor), so a call on ``meta`` tensors — a dry run of a full-size
+configuration — counts its arguments and its peak by their shapes.  A
+call turns sharded at its first op on DTensors; a call on plain tensors
+never does, and is recorded with no propagation filter.
 
 Suppression: allows are PER ENTRY —
 
@@ -154,7 +179,8 @@ _INDEX_OPS = {"sort", "argsort", "topk", "kthvalue", "mode", "max", "min",
 # ops that move no bytes: allocations and aliasing (bytes_accessed)
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "detach", "alias", "lift_fresh",
-               "resize_", "set_", "_local_scalar_dense"}
+               "resize_", "set_", "_local_scalar_dense",
+               "wait_tensor", "_wrap_tensor_autograd"}
 _WIDE = {"float64", "complex128"}
 
 
@@ -251,6 +277,9 @@ def _leaves(x) -> list:
     def walk(v):
         if isinstance(v, torch.Tensor):
             out.append(v)
+        elif isinstance(v, torch.nn.Module):     # a model's ParamTree
+            out.extend(v.parameters())
+            out.extend(v.buffers())
         elif isinstance(v, (list, tuple)):
             for c in v:
                 walk(c)
@@ -264,8 +293,62 @@ def _leaves(x) -> list:
     return out
 
 
+_DTENSOR = None     # DTensor's class, imported by the first recording
+
+
+def _local(t):
+    """A DTensor's local shard (this rank's tensor); ``t`` otherwise."""
+    if _DTENSOR is not None and isinstance(t, _DTENSOR):
+        return t._local_tensor
+    return t
+
+
 def _nbytes(t) -> int:
+    t = _local(t)
     return t.numel() * t.element_size()
+
+
+def _storage_id(t) -> int:
+    """The identity of a tensor's (local) storage: its address in memory,
+    not its data pointer, which is 0 for every ``meta`` tensor."""
+    return _local(t).untyped_storage()._cdata
+
+
+_PROPAGATION = ("tensor/_sharding_prop.py", "tensor/_decompositions.py")
+
+
+def _in_propagation(depth: int = 10) -> bool:
+    """True inside DTensor's sharding propagation, which on a cache miss
+    runs some ops (a decomposition's) on ``meta`` tensors of the global
+    shape: they are not the rank's work.  The propagation calls the op a
+    few frames above the recorder's mode, so ``depth`` frames are
+    looked at."""
+    f = sys._getframe(2)
+    while f is not None and depth:
+        if f.f_code.co_filename.replace(os.sep, "/").endswith(_PROPAGATION):
+            return True
+        f, depth = f.f_back, depth - 1
+    return False
+
+
+def _op_leaves(x, out: list) -> list:
+    """The tensors of an op's arguments or results (tensors, lists and
+    tuples of them, a kwargs dict), appended to ``out``."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _op_leaves(v, out)
+    elif isinstance(x, dict):
+        for v in x.values():
+            _op_leaves(v, out)
+    return out
+
+
+def _is_fake(leaves) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in leaves)
 
 
 def _dtype_name(t) -> str:
@@ -289,8 +372,8 @@ class Recorder:
     """Records every aten op of the calls run inside ``active()``: a
     ``TorchDispatchMode`` for the ops, wrappers around ``Tensor.tolist`` /
     ``Tensor.numpy`` for the host reads that dispatch nothing, the kernel
-    registry's bytes hook for the CUDA launches, ``FlopCounterMode`` for
-    flops, and the peak bytes per call.  ``paused()`` excludes harness
+    registry's bytes hook for the CUDA launches, ``FlopCounterMode``'s
+    table for flops, and the peak bytes per call.  ``paused()`` excludes harness
     work (moving data, reading spills) from the record."""
 
     def __init__(self):
@@ -300,6 +383,8 @@ class Recorder:
         self._live: Dict[int, int] = {}
         self._live_bytes = 0
         self._peak = 0
+        self._sharded = False       # the call has run an op on DTensors
+        self._flop_table = {}
 
     # ---------------------------------------------------------- plumbing --
     @contextlib.contextmanager
@@ -331,13 +416,18 @@ class Recorder:
     def _free(self, key) -> None:
         self._live_bytes -= self._live.pop(key, 0)
 
-    def on_op(self, func, args, kwargs, out) -> None:
+    def on_op(self, func, args, kwargs, out, ins, outs) -> None:
+        """Record one op (``ins`` / ``outs``: the tensors of its arguments
+        and results) and count its flops from ``FlopCounterMode``'s table
+        of matrix-class ops (``mm``, ``bmm``, ``addmm``, convolutions,
+        attention, ...); an op outside the table counts none."""
         import torch
         if self._paused:
             return
         name = func.overloadpacket.__name__
-        ins = [t for t in _leaves((args, kwargs))]
-        outs = _leaves(out)
+        count = self._flop_table.get(func._overloadpacket)
+        if count is not None:
+            self.trace.flops += int(count(*args, **kwargs, out_val=out))
         scalar_out = not outs and isinstance(out, (bool, int, float)) \
             and bool(ins)
         if (scalar_out or name == "_local_scalar_dense") \
@@ -366,31 +456,49 @@ class Recorder:
             nbytes=nbytes))
         if moves and not name.endswith("_") and name != "copy_":
             for t in outs:
-                if isinstance(t, torch.Tensor) and t.device.type == "cpu":
+                if isinstance(t, torch.Tensor) \
+                        and t.device.type in ("cpu", "meta"):
                     self._alloc(t)
 
     # ------------------------------------------------------------ record --
     @contextlib.contextmanager
     def active(self, device=None):
-        """Record the ops run inside; one ``active()`` is one call."""
+        """Record the ops run inside; one ``active()`` is one call.  The
+        call turns sharded at its first op on DTensors: from then on the
+        sharding propagation's ops are told apart and left out."""
         import torch
+        from torch.distributed.tensor import DTensor
         from torch.utils._python_dispatch import TorchDispatchMode
-        from torch.utils.flop_counter import FlopCounterMode
+        from torch.utils.flop_counter import flop_registry
 
         from repro_torch.kernels import registry
         rec = self
+        self._flop_table = flop_registry
+        global _DTENSOR
+        _DTENSOR = DTensor
 
         class _Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if DTensor in types:
+                    # DTensor's dispatch runs the op; its local ops and
+                    # collectives come back here
+                    rec._sharded = True
+                    return NotImplemented
                 kwargs = kwargs or {}
+                ins = _op_leaves(kwargs, _op_leaves(args, []))
+                if rec._sharded and (_is_fake(ins) or _in_propagation()):
+                    return func(*args, **kwargs)     # sharding propagation
                 out = func(*args, **kwargs)
-                rec.on_op(func, args, kwargs, out)
+                outs = _op_leaves(out, [])
+                if not (rec._sharded and _is_fake(outs)):
+                    rec.on_op(func, args, kwargs, out, ins, outs)
                 return out
 
         def host_method(name, orig):
             @functools.wraps(orig)
             def read(t, *a, **k):
-                rec._note_host(name)
+                if not (rec._sharded and _in_propagation()):
+                    rec._note_host(name)
                 rec._in_host_call += 1
                 try:
                     return orig(t, *a, **k)
@@ -407,19 +515,18 @@ class Recorder:
             torch.cuda.reset_peak_memory_stats(device)
         self._peak = self._live_bytes = 0
         self._live.clear()
+        self._sharded = False
         prev_hook = registry.BYTES_HOOK
         registry.BYTES_HOOK = self._note_kernel
-        fc = FlopCounterMode(display=False)
         try:
             for m, orig in saved.items():
                 setattr(torch.Tensor, m, host_method(m, orig))
-            with fc, _Mode():
+            with _Mode():
                 yield self
         finally:
             for m, orig in saved.items():
                 setattr(torch.Tensor, m, orig)
             registry.BYTES_HOOK = prev_hook
-        self.trace.flops += int(fc.get_total_flops())
         self.trace.calls += 1
         if cuda:
             torch.cuda.synchronize(device)
@@ -435,9 +542,13 @@ class Recorder:
 def _clone_tree(x):
     """``x`` with every tensor leaf cloned (an in-place entry then moves
     the clones, never the caller's state)."""
+    import copy
+
     import torch
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if isinstance(x, torch.nn.Module):          # a model's ParamTree
+        return copy.deepcopy(x)
     if isinstance(x, (list, tuple)):
         return type(x)(_clone_tree(c) for c in x)
     if isinstance(x, dict):
@@ -513,9 +624,10 @@ class AuditRecord:
 
 def _note_memory(t: Trace, args, out) -> None:
     """Argument, output and aliased bytes of a recorded call (by storage,
-    each counted once) — ``Compiled.memory_analysis``'s fields."""
-    arg = {x.untyped_storage().data_ptr(): _nbytes(x) for x in _leaves(args)}
-    outs = {x.untyped_storage().data_ptr(): _nbytes(x) for x in _leaves(out)}
+    each counted once; a DTensor by its local shard) —
+    ``Compiled.memory_analysis``'s fields."""
+    arg = {_storage_id(x): _nbytes(x) for x in _leaves(args)}
+    outs = {_storage_id(x): _nbytes(x) for x in _leaves(out)}
     t.arg_bytes, t.out_bytes = sum(arg.values()), sum(outs.values())
     t.alias_bytes = sum(n for p, n in outs.items() if p in arg)
 

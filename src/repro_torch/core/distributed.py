@@ -101,13 +101,30 @@ def shard(mesh, x):
     return x[local_block(mesh, x.shape[0])]
 
 
+def _group(mesh):
+    """The process group of a ``FleetMesh``, or of a ``DeviceMesh``: its
+    one dim's, or the world's when it spans the world (every axis a data
+    axis, as the dry-run cells lay the fleet over a production mesh)."""
+    import torch.distributed as dist
+    group = getattr(mesh, "group", None)
+    if group is not None:
+        return group
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a {tuple(mesh.shape)} mesh that does not span "
+                         f"the {dist.get_world_size()} ranks has no one "
+                         f"group over all its axes")
+    return dist.group.WORLD
+
+
 def _all_reduce(mesh, data_axes, x: torch.Tensor, op) -> torch.Tensor:
-    """``x`` reduced in place over the ranks when the data axis is
-    sharded (the port's one mesh axis), as the reference's loop of psums
-    over ``data_axes``."""
+    """``x`` reduced in place over the ranks when the data axes are
+    sharded, as the reference's loop of psums over ``data_axes``."""
     if data_axes:
         import torch.distributed as dist
-        dist.all_reduce(x, op=getattr(dist.ReduceOp, op), group=mesh.group)
+        dist.all_reduce(x, op=getattr(dist.ReduceOp, op),
+                        group=_group(mesh))
     return x
 
 

@@ -64,6 +64,16 @@ operand with ``like(t, x)`` as a replicated DTensor on ``x``'s mesh
     heads when both are sharded, and it picks such placements for
     gradients on the card (the constraint's backward puts the gradient
     back);
+  * ``grad_as_forward``: the per-layer views of the stacked parameters
+    (``transformer._layers``), whose gradients are reduced to each
+    view's own placements before the unbind's backward stacks them, and
+    the output head (``transformer._logits``), whose gradient a tied
+    table adds to the embedding's (torch 2.11 cannot add a (Partial,
+    Shard(0)) gradient to a (Shard(1), Replicate()) one);
+  * ``replicate_grad``: the MoE dispatch's and combine's
+    ``index_select`` outputs, whose gradient DTensor may shard over the
+    selected rows while the index is whole (torch 2.11 then fails the
+    backward's ``index_add_``);
   * ``like``: the positions (``transformer.forward``), ``apply_rope``'s
     frequencies, ``chunked_attention``'s running max, denominator,
     accumulator and causal mask, and the dense layers' zero aux loss —
@@ -77,11 +87,9 @@ operand with ``like(t, x)`` as a replicated DTensor on ``x``'s mesh
     gradient first redistributed to its parameter's placements; the
     global norm is the one collective (``full_tensor``).
 
-The five LM archs' steps execute under a policy (torch 2.13; under
-torch 2.11 granite-moe's expert-TP dispatch fails at a model axis > 1:
-its ``index_select``'s backward meets a sharded gradient with the whole
-index); the DCN-v2 and GNN paths carry their ``constrain`` calls but
-are not executed sharded (the reference lowers them only).
+The five LM archs' steps execute under a policy; the DCN-v2 and GNN
+paths carry their ``constrain`` calls but are not executed sharded (the
+reference lowers them only).
 
 DTensor returns its operand unchanged for ``<<``, ``>>`` and ``&`` with
 an int (torch 2.13): code that may meet a DTensor multiplies instead
@@ -294,6 +302,70 @@ def replicate(x):
         return x
     return x.redistribute(x.device_mesh,
                           (Replicate(),) * x.device_mesh.ndim)
+
+
+class _GradTo(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    given placements."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = tuple(placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def replicate_grad(x):
+    """``x`` itself in the forward; under a policy its gradient is made
+    whole (``Replicate()``) in the backward, before the op that made
+    ``x`` takes it.  An ``index_select`` of a whole source by a whole index
+    needs this: DTensor may hand its backward a gradient sharded over the
+    selected rows, which the whole index does not fit (torch 2.11's
+    ``index_add_`` size error)."""
+    if current_policy() is None or not isinstance(x, DTensor):
+        return x
+    return _GradTo.apply(x, (Replicate(),) * x.device_mesh.ndim)
+
+
+def grad_as_forward(x):
+    """``x`` itself in the forward; under a policy its gradient is put
+    under ``x``'s own placements in the backward.  The layer views of a
+    stacked ``[L, ...]`` parameter take it, so that each layer's gradient
+    is reduced to its parameter's sharding before the views' gradients
+    are stacked: DTensor otherwise picks the stacked gradient's
+    intermediate placements by whether the mesh axis divides L (a
+    collective that grows by L's parity, not by L)."""
+    if current_policy() is None or not isinstance(x, DTensor):
+        return x
+    return _GradTo.apply(x, x.placements)
+
+
+def index_copy_(x, dim: int, at: torch.Tensor, src):
+    """``x.index_copy_(dim, at, src)`` for one position ``at`` (a 1-element
+    index).  For a DTensor ``x`` each rank writes the position into its own
+    block of ``x``, in place: DTensor's rule for ``index_copy_`` would
+    replicate a sharded ``dim`` and leave the local shard as it was (a
+    DTensor whose placements no longer describe its shard)."""
+    if not isinstance(x, DTensor):
+        return x.index_copy_(dim, at, src)
+    mesh = x.device_mesh
+    keep = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                 for p in x.placements)
+    src = like(src, x).redistribute(mesh, keep).to_local()
+    block = local_slices(x.shape, Sharding(mesh, tuple(x.placements)))[dim]
+    n = block.stop - block.start
+    local = x.to_local()
+    rel = to_local(at) - block.start
+    inside = (rel >= 0) & (rel < n)
+    rel = torch.clamp(rel, 0, max(n - 1, 0))
+    local.index_copy_(dim, rel, torch.where(inside, src,
+                                            local.index_select(dim, rel)))
+    return x
 
 
 def to_local(x):

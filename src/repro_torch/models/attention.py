@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from repro_torch.distribution.sharding import constrain, like
+from repro_torch.distribution.sharding import constrain, index_copy_, like
 from repro_torch.models import common
 from repro_torch.models.common import apply_rope
 
@@ -88,7 +88,7 @@ def _grouped_bmm(a, b):
 def _valid(cache_len, s: int, device):
     """[S] or [B, 1, 1, S] mask of the cache positions below
     ``cache_len`` (a host int, a 0-d tensor or a [B] tensor)."""
-    pos = torch.arange(s, device=device)
+    pos = like(torch.arange(s, device=device), cache_len)
     if isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1:
         return (pos[None, :] < cache_len[:, None])[:, None, None, :]
     return pos < cache_len
@@ -99,15 +99,18 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
     q [B, Hkv, G, Dk]; caches [B, Hkv, S, D*]; cache_len a host int, a
     0-d or a [B] tensor — the number of valid cache positions (the new
-    token attends to [0, cache_len)).
+    token attends to [0, cache_len)).  The two products are the
+    reference's einsums as ``_grouped_bmm``s, so under a sharding policy a
+    cache sharded over its sequence is gathered whole first.
     """
     dk = q.shape[-1]
-    qf = q.float() / math.sqrt(dk)
-    scores = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float())
+    qf = q.float()[:, :, :, None] / math.sqrt(dk)          # [B,H,G,1,Dk]
+    scores = _grouped_bmm(qf, k_cache.float().transpose(-1, -2))[
+        :, :, :, 0]                                         # [B,H,G,S]
     scores = torch.where(_valid(cache_len, k_cache.shape[2], q.device),
                          scores, MASK_VALUE)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    out = _grouped_bmm(p[:, :, :, None], v_cache.float())[:, :, :, 0]
     return out.to(q.dtype)
 
 
@@ -124,7 +127,7 @@ def _write(cache: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor,
     """``dynamic_update_slice_in_dim`` of one position along ``dim``, in
     place: the start (a 0-d device tensor) clamped into [0, size - 1]."""
     at = torch.clamp(cache_len, 0, cache.shape[dim] - 1).reshape(1)
-    cache.index_copy_(dim, at.long(), new)
+    index_copy_(cache, dim, at.long(), new)
 
 
 # ------------------------------------------------------------------- GQA ----
@@ -193,9 +196,12 @@ def gqa_decode(p, x, cache, cache_len, *, n_heads: int,
     g = n_heads // n_kv_heads
     cache_len = as_length(cache_len, x.device)
     pos = cache_len.expand(b, 1)
-    q = (x @ p["wq"]).reshape(b, 1, n_kv_heads, g, d_head)
-    k = (x @ p["wk"]).reshape(b, 1, n_kv_heads, d_head)
-    v = (x @ p["wv"]).reshape(b, 1, n_kv_heads, d_head)
+    q = _batch_only(_heads_whole(x @ p["wq"]).reshape(b, 1, n_kv_heads, g,
+                                                      d_head))
+    k = _batch_only(_heads_whole(x @ p["wk"]).reshape(b, 1, n_kv_heads,
+                                                      d_head))
+    v = _batch_only(_heads_whole(x @ p["wv"]).reshape(b, 1, n_kv_heads,
+                                                      d_head))
     q = apply_rope(q.permute(0, 2, 3, 1, 4), pos[:, None, None, :],
                    rope_theta)[:, :, :, 0]                   # [B,Hkv,G,Dh]
     k = apply_rope(k.permute(0, 2, 1, 3), pos[:, None, :], rope_theta)
@@ -292,7 +298,7 @@ def mla_decode(p, x, cache, cache_len, cfg: MLAConfig):
     q_rope = apply_rope(q_rope.permute(0, 2, 1, 3), pos[:, None],
                         cfg.rope_theta)[:, :, 0]           # [B,H,dr]
 
-    ckv = x @ p["wkv_a"]
+    ckv = _heads_whole(x @ p["wkv_a"])
     c_new, kr_new = ckv[..., :r], ckv[..., r:]
     kr_new = apply_rope(kr_new, pos, cfg.rope_theta)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
@@ -308,7 +314,8 @@ def mla_decode(p, x, cache, cache_len, cfg: MLAConfig):
     scores = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv.float())
               + torch.einsum("bhd,bsd->bhs", q_rope.float(),
                              k_rope.float())) * scale
-    valid = torch.arange(c_kv.shape[1], device=x.device) < cache_len + 1
+    valid = like(torch.arange(c_kv.shape[1], device=x.device),
+                 cache_len) < cache_len + 1
     scores = torch.where(valid, scores, MASK_VALUE)
     attn = torch.softmax(scores, dim=-1)
     ctx_lat = torch.einsum("bhs,bsr->bhr", attn, c_kv.float())

@@ -31,7 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.distribution.sharding import (constrain, like, replicate,
-                                               to_local)
+                                               replicate_grad, to_local)
 from repro_torch.models import common
 from repro_torch.models.common import swiglu
 
@@ -148,8 +148,8 @@ def moe_forward(p, x, cfg: MoEConfig, shard: str = "ep"
     whole = replicate(xt)
     pad = torch.zeros((1, d), dtype=whole.dtype, device=whole.device)
     xt_pad = torch.cat([whole, like(pad, whole)])
-    xe = xt_pad.index_select(0, replicate(slot_token).reshape(-1)).reshape(
-        cfg.n_experts, cap, d)
+    xe = replicate_grad(xt_pad.index_select(
+        0, replicate(slot_token).reshape(-1))).reshape(cfg.n_experts, cap, d)
     xe = constrain(xe, ep, None, None, divisible_dims=False)
 
     # expert FFN: batched GEMMs over the expert dim
@@ -162,8 +162,8 @@ def moe_forward(p, x, cfg: MoEConfig, shard: str = "ep"
     # combine: each pair gathers its slot (a dropped one slot C - 1, x 0)
     flat = r.gate_idx.reshape(t * k) * cap + torch.clamp(r.slot_of,
                                                          max=cap - 1)
-    contrib = replicate(replicate(ye).reshape(-1, d)).index_select(
-        0, flat)                                             # [T*K, D]
+    contrib = replicate_grad(replicate(replicate(ye).reshape(
+        -1, d)).index_select(0, flat))                       # [T*K, D]
     contrib = constrain(contrib, "batch", None)
     w_of = r.gate_vals.reshape(t * k) * r.keep
     contrib = contrib * w_of[:, None].to(contrib.dtype)

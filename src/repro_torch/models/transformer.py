@@ -37,7 +37,9 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
-from repro_torch.distribution.sharding import (constrain, like, replicate,
+from repro_torch.distribution.sharding import (constrain, current_policy,
+                                               grad_as_forward, like,
+                                               replicate,
                                                under_current_policy)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
@@ -129,7 +131,7 @@ def _layers(params) -> list:
         for lp, view in zip(out, torch.unbind(leaf)):
             for k in path:
                 lp = lp.setdefault(k, {})
-            lp[key] = view
+            lp[key] = grad_as_forward(view)
     return out
 
 
@@ -168,7 +170,10 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _logits(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     x = rms_norm(x, params.final_norm)
-    head = params.embed if cfg.tie_embeddings else params.lm_head
+    # the head's gradient comes back under its own placements, so a tied
+    # table's two gradients meet alike (DTensor may not add them else)
+    head = grad_as_forward(params.embed if cfg.tie_embeddings
+                           else params.lm_head)
     logits = x @ head.T
     spec = ("batch", None, "tp") if logits.ndim == 3 else ("batch", "tp")
     return constrain(logits, *spec)
@@ -291,6 +296,47 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
                 v=torch.zeros(shape, dtype=dt, device=dev))
 
 
+def cache_axes(cfg: LMConfig, policy, max_len: int) -> dict:
+    """The logical axes of each stacked cache leaf [L, B, ...] under
+    ``policy`` (the reference's cache shardings): batch always; the model
+    axis on the kv-head dim when it divides the kv heads, else on the
+    sequence dim when it divides ``max_len``."""
+    tp = policy.tp_axis
+    tpsize = policy.axis_size("tp") if tp else 1
+    s_ax = "tp" if tp and max_len % tpsize == 0 else None
+    if cfg.attn == "mla":
+        return dict(c_kv=(None, "batch", s_ax, None),
+                    k_rope=(None, "batch", s_ax, None))
+    if tp and cfg.n_kv_heads % tpsize == 0:
+        axes = (None, "batch", "tp", None, None)
+    else:
+        axes = (None, "batch", None, s_ax, None)
+    return dict(k=axes, v=axes)
+
+
+def _stacked_cache(chunks: list, cfg: LMConfig, max_len: int) -> dict:
+    """The stacked cache [L, B, ..., max_len, D] built from each chunk's
+    per-layer entries (batch chunks joined, the sequence padded with
+    zeros to ``max_len``), under the policy's cache axes: a prefill on
+    DTensors, where writing into slices of one sharded cache is not a
+    view DTensor keeps."""
+    pol = current_policy()
+    axes = cache_axes(cfg, pol, max_len)
+    out = {}
+    for name in chunks[0][0]:
+        layers = []
+        for i in range(len(chunks[0])):
+            t = torch.cat([c[i][name] for c in chunks]).to(_dtype(cfg))
+            pad = max_len - t.shape[-2]
+            if pad:
+                shape = t.shape[:-2] + (pad, t.shape[-1])
+                t = torch.cat([t, like(torch.zeros(
+                    shape, dtype=t.dtype, device=t.device), t)], dim=-2)
+            layers.append(t)
+        out[name] = constrain(torch.stack(layers), *axes[name])
+    return out
+
+
 def decode_step(params, token: torch.Tensor, cache: dict, cache_len,
                 cfg: LMConfig) -> Tuple[torch.Tensor, dict]:
     """One serving step: token [B, 1] + cache -> (logits [B, V], cache).
@@ -333,7 +379,9 @@ def prefill(params, tokens: torch.Tensor, cfg: LMConfig,
 
     ``cfg.prefill_microbatch`` > 0 runs the batch in chunks of that many
     rows (when it splits the batch into two or more), each chunk's caches
-    written into its rows of the one stacked cache.
+    written into its rows of the one stacked cache.  Under a sharding
+    policy the cache is built from the chunks' entries instead, under
+    ``cache_axes`` (``_stacked_cache``).
     """
     b, s = tokens.shape
     max_len = max_len or s
@@ -344,16 +392,25 @@ def prefill(params, tokens: torch.Tensor, cfg: LMConfig,
     elif n_chunks * mb != b:
         raise ValueError(f"prefill: batch {b} is not a multiple of "
                          f"prefill_microbatch {mb}")
-    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    sharded = current_policy() is not None
+    cache = None if sharded else init_cache(cfg, b, max_len,
+                                            device=tokens.device)
     layers = _layers(params)
-    logits = []
+    logits, chunks = [], []
     for c in range(n_chunks):
         rows = slice(c * mb, (c + 1) * mb)
         x = _embed(params, tokens[rows])
-        positions = _positions(mb, s, tokens.device)
+        positions = like(_positions(mb, s, tokens.device), x)
+        entries = []
         for i, lp in enumerate(layers):
-            x, _, entries = _layer_forward(lp, x, cfg, positions)
-            for name, t in entries.items():
+            x, _, e = _layer_forward(lp, x, cfg, positions)
+            if sharded:
+                entries.append(e)
+                continue
+            for name, t in e.items():
                 cache[name][i, rows].narrow(-2, 0, s).copy_(t)
+        chunks.append(entries)
         logits.append(_logits(params, x[:, -1], cfg))
+    if sharded:
+        cache = _stacked_cache(chunks, cfg, max_len)
     return torch.cat(logits), cache, s

@@ -73,6 +73,18 @@ from a cache key; ``audit(cfg)`` runs ``tracekit.audit_fleet``.  A
 ``Compiled`` asked before anything was recorded records one call on zero
 tensors of its key's shapes (the counterpart of the reference's
 re-lowering from abstract avals): the shapes are right, the data is not.
+
+**Sharded calls.**  A key holds each leaf's global shape, dtype and
+device, not its DTensor placements, so a call lowered on DTensors cannot
+be rebuilt from its key.  Such a ``Lowered`` keeps the placed arguments
+it was lowered with (``Lowered.args``; ``lower(..., keep_args=True)``
+keeps plain ones too, where the data matters to the count), and its
+``Compiled`` records on clones of them, as ``cost_of`` does.  Both are
+the caller's own objects beside the cached ones, which keep no
+argument: the arguments are freed with them.  A sharded
+``Compiled`` with no placed arguments raises rather than record plain
+zeros.  A recorded sharded call counts one rank's share
+(``analysis/tracekit.py``).
 """
 from __future__ import annotations
 
@@ -130,7 +142,8 @@ class Signature:
     """Canonical, hashable config signature — the cache key's static half.
 
     ``None`` fields mean "not pinned by this entry point".  ``mesh`` is
-    the ``((axis name, size), ...)`` form of a ``launch.mesh.FleetMesh``
+    the ``((axis name, size), ...)`` form of a ``DeviceMesh`` (every axis,
+    as the reference records a ``Mesh``) or of a ``launch.mesh.FleetMesh``
     (``(("data", P),)``); ``extra`` holds entry-specific knobs as a
     ``((name, value), ...)`` tuple.
     """
@@ -178,7 +191,8 @@ def signature_of(cfg=None, *, cuts=None, block_size=None, dtype=None,
     cuts, unknown semirings/dtypes, ``lazy_l0`` outside plus.times, batch
     modes outside ``allowed_batch_modes`` (default: all of
     ``BATCH_MODES``), and ``data_axes`` that are not distinct axes of
-    ``mesh`` (a ``FleetMesh`` or its ``((name, size), ...)`` form) all
+    ``mesh`` (a ``DeviceMesh``, a ``FleetMesh`` or the ``((name, size),
+    ...)`` form) all
     raise the same ``invalid d4m config signature: ...`` ValueError at
     every entry point.
     """
@@ -237,7 +251,11 @@ def signature_of(cfg=None, *, cuts=None, block_size=None, dtype=None,
         raise _invalid(f"l0_mode must be one of {L0_MODES}, "
                        f"got {l0_mode!r}")
     if mesh is not None and not isinstance(mesh, tuple):
-        mesh = tuple(zip(mesh.axis_names, (mesh.size,)))
+        names = getattr(mesh, "mesh_dim_names", None)
+        if names is not None:          # a DeviceMesh: every (axis, size)
+            mesh = tuple(zip(names, mesh.shape))
+        else:                          # a FleetMesh: its one axis
+            mesh = tuple(zip(mesh.axis_names, (mesh.size,)))
     mesh = tuple((str(a), int(n)) for a, n in mesh or ())
     data_axes = tuple(data_axes or ())
     names = tuple(a for a, _ in mesh)
@@ -545,10 +563,13 @@ class Compiled:
     a ``"graph"`` entry the warm-up / capture / replay cycle described in
     the module docstring."""
 
-    def __init__(self, key, fn: Callable, kind: str):
+    def __init__(self, key, fn: Callable, kind: str, args=None,
+                 sharded: bool = False):
         self.key = key
         self.fn = fn
         self.kind = kind
+        self.args = args            # the placed arguments (sharded calls)
+        self.sharded = sharded
         self.copied_bytes = 0       # bytes copied into static inputs, last
         self.last_kind = None       # "eager" / "graph" of the last dispatch
         self.launches = {}          # kernel launches a replay makes
@@ -637,8 +658,16 @@ class Compiled:
     def _trace(self):
         if self.recorded is None:
             from repro_torch.analysis import tracekit
-            tracekit.record_compiled(self,
-                                     materialize(abstract_args(self.key)))
+            if self.args is not None:
+                tracekit.record_compiled(self, self.args)
+            elif self.sharded:
+                raise RuntimeError(
+                    f"{self.key[0]}: a sharded call is recorded on its "
+                    "placed arguments, and none were kept (lower it with "
+                    "them)")
+            else:
+                tracekit.record_compiled(
+                    self, materialize(abstract_args(self.key)))
         return self.recorded
 
     def cost_analysis(self) -> dict:
@@ -688,23 +717,43 @@ class MemoryAnalysis:
 
 class Lowered:
     """Stage 2: one key of a ``Wrapped``; ``compile()`` makes (or finds)
-    its ``Compiled``."""
+    its ``Compiled``.  ``args`` are the arguments kept for the recorded
+    call (a sharded lowering's placed arguments), else None: a
+    ``Lowered`` that keeps them is the caller's own, never the cached
+    one, so they live as long as the caller holds it or its
+    ``Compiled``."""
 
-    def __init__(self, key, wrapped: "Wrapped"):
+    def __init__(self, key, wrapped: "Wrapped", args=None,
+                 sharded: bool = False):
         self.key = key
         self._wrapped = wrapped
+        self.args = args
+        self.sharded = sharded
 
     def compile(self) -> Compiled:
+        """The key's cached ``Compiled``; with kept arguments, a
+        ``Compiled`` of the same program that records on them (the
+        caller's own, as this ``Lowered`` is)."""
         with _LOCK:
             comp = _COMPILED.get(self.key)
-        if comp is not None:
-            _count("memory_hits")
+            if comp is None:
+                comp = _COMPILED.setdefault(self.key, Compiled(
+                    self.key, self._wrapped.fn, self._wrapped.kind))
+                _STATS["compiles"] += 1
+            else:
+                _STATS["memory_hits"] += 1
+        # its key cannot rebuild a sharded call's arguments
+        comp.sharded = comp.sharded or self.sharded
+        if self.args is None:
             return comp
-        comp = Compiled(self.key, self._wrapped.fn, self._wrapped.kind)
-        with _LOCK:
-            comp = _COMPILED.setdefault(self.key, comp)
-            _STATS["compiles"] += 1
-        return comp
+        return Compiled(self.key, comp.fn, comp.kind, self.args,
+                        self.sharded)
+
+
+def is_sharded(leaves) -> bool:
+    """True when a leaf is a DTensor (its placements are not in a key)."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in leaves)
 
 
 class Wrapped:
@@ -730,18 +779,22 @@ class Wrapped:
         return (self.entry, self.sig, self.static, self._opt_key,
                 treedef, avals)
 
-    def lower(self, *args) -> Lowered:
+    def lower(self, *args, keep_args: Optional[bool] = None) -> Lowered:
         """Stage the function for the given (abstract or concrete) args;
-        cached per key."""
+        cached per key.  When the args are sharded (or with
+        ``keep_args=True``) the ``Lowered`` returned is a new one that
+        keeps them for its recorded call; the cache keeps none."""
         key = self._key(args)
         with _LOCK:
             low = _LOWERED.get(key)
-        if low is not None:
-            return low
-        low = Lowered(key, self)
-        with _LOCK:
-            low = _LOWERED.setdefault(key, low)
-            _STATS["lowerings"] += 1
+            if low is None:
+                low = _LOWERED.setdefault(key, Lowered(key, self))
+                _STATS["lowerings"] += 1
+        sharded = is_sharded(tree_leaves(args))
+        if keep_args or (sharded and keep_args is None):
+            return Lowered(key, self, args, sharded)
+        if sharded:
+            return Lowered(key, self, None, sharded)
         return low
 
     def compiled(self, *args) -> Optional[Compiled]:
@@ -760,7 +813,8 @@ class Wrapped:
             _count("memory_hits")
         else:
             c0 = time.perf_counter()
-            comp = self.lower(*args).compile()
+            # a dispatch keeps no argument alive in the cache
+            comp = self.lower(*args, keep_args=False).compile()
             compile_s = time.perf_counter() - c0
             provenance = "compile"
         ann = _TRACE_ANNOTATION

@@ -336,3 +336,43 @@ def test_sharding_phase_on_cpu(tmp_path):
     assert lm["param_excess"] <= chip_smoke.MESH_LR / 10
     assert [p["mesh"] for p in res["production"]] == [[16, 16], [2, 16, 16]]
     assert all(p["leaves"] > 100 for p in res["production"])
+
+
+def test_dryrun_phase_on_cpu(tmp_path):
+    """Phase 18 at smoke size on the CPU: (a) through ``cells.lower_cell``
+    on a one-rank gloo group, the D4M ``ingest_small`` and ``query`` cells
+    at ``d4m_stream.config()`` (the plain kernel versions) and smollm's
+    train step at its smoke widths, 4 x 32, each recorded and timed — the
+    roofline bound at the H100's rates held under the CPU's measured time;
+    (b) ``dryrun.run_cell`` in child processes on both production meshes
+    under a fake group: decode cells at smoke widths and a ``long_500k``
+    skip."""
+    import torch_parity as tp
+    lm = tp.smoke_variant("smollm-360m")
+    res = chip_smoke.dryrun_phase(
+        torch, "cpu", "cpu", str(tmp_path),
+        card_cells=(("d4m-stream", "ingest_small", "baseline"),
+                    ("d4m-stream", "query", "baseline"),
+                    ("smollm-360m", "train_4k", lm)),
+        host_cells=(("single", "smollm-360m", "decode_32k", lm),
+                    ("multi", "granite-moe-3b-a800m", "decode_32k",
+                     tp.smoke_variant("granite-moe-3b-a800m")),
+                    ("single", "smollm-360m", "long_500k", "baseline")),
+        lm_cut=dict(batch=4, seq=32), reps=1, host_timeout=300)
+    ingest, query, train = res["card"]
+    for r in res["card"]:
+        assert 0 < r["bound_ms"] <= r["ms"] and r["fraction"] <= 1
+        assert r["recorded_peak_bytes"] > 0 and r["argument_bytes"] > 0
+    assert ingest["dominant"] == "memory" and ingest["coll"] == 0
+    # the histogram's one all_reduce, recorded on a one-rank group too
+    assert query["collectives"] == {"all-reduce": 32 * 4}
+    assert train["flops"] > 0 and train["tokens"] == 4 * 32
+    assert train["useful_fraction"] > 0
+    # no matrix-class op in ingest: no useful fraction
+    assert ingest["flops"] == 0 and ingest["useful_fraction"] is None
+    assert res["merge_multi"] == 0                     # plain versions
+    decode, granite, skip = res["host"]
+    assert decode["status"] == granite["status"] == "ok"
+    assert decode["collective_bytes_per_device"] > 0
+    assert granite["mesh"] == "multi" and granite["fits_hbm"] is True
+    assert skip["status"] == "skip"

@@ -443,3 +443,43 @@ def test_sharding_modules_import_no_jax_and_default_to_cuda(monkeypatch,
                  lambda: restore(str(tmp_path), 1, fleet, shardings=cuda)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_dryrun_d4m_cells_default_to_cuda_and_raise_without_it(monkeypatch):
+    """A D4M dry-run cell and its probes run on the card unless the caller
+    names the CPU, and raise without a card; an LM cell stays on
+    ``meta``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.launch import cells, probes
+    for shape in ("ingest_small", "query"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cells.lower_cell("d4m-stream", shape, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probes.d4m_corrected("d4m-stream", "ingest_small", None)
+
+
+def test_dryrun_modules_import_no_jax():
+    """The roofline and the dry-run tooling (``roofline/``,
+    ``launch/cells``, ``probes``, ``dryrun``, ``diagnose``) import neither
+    JAX nor anything of the JAX package (each file, and in a fresh
+    process), and ``chip_smoke.py`` takes the card's rates from
+    ``roofline/terms.py``."""
+    for name in ("roofline/__init__.py", "roofline/terms.py",
+                 "roofline/hlo.py", "launch/cells.py", "launch/probes.py",
+                 "launch/dryrun.py", "launch/diagnose.py"):
+        bad = [m for m in _imported_roots(PORT / name) if m in FORBIDDEN]
+        assert not bad, (name, bad)
+    code = ("import sys\n"
+            "import repro_torch.roofline\n"
+            "from repro_torch.launch import cells, diagnose, dryrun, probes\n"
+            "import chip_smoke\n"
+            "from repro_torch.roofline.terms import HW_H100, "
+            "H100_F32_FLOPS\n"
+            "assert chip_smoke.HBM_BYTES_PER_S == HW_H100['hbm_bw']\n"
+            "assert chip_smoke.OPS_PER_S == H100_F32_FLOPS\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

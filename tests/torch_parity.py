@@ -287,3 +287,260 @@ def run_mesh_jobs(fleet, jobs):
         else:
             raise ValueError(f"unknown mesh job {kind!r}")
     return out
+
+
+# --------------------------------------------------------------- dry runs ---
+
+DENSE_ARCHS = ("smollm-360m", "phi3-mini-3.8b", "mistral-nemo-12b")
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-236b")
+DRY_BATCH, DRY_SEQ = 8, 32
+
+
+def smoke_variant(arch: str, **over) -> str:
+    """The ``variant`` string that turns ``arch``'s full config into its
+    smoke config (then ``over``'s fields): a cell of the smoke widths
+    through ``cells.lower_cell``."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    full = dataclasses.asdict(get_config(arch))
+    smoke = dataclasses.asdict(get_smoke_config(arch))
+    smoke.update(over)
+    return ",".join(f"{k}={v}" for k, v in smoke.items()
+                    if k != "family" and v != full[k])
+
+
+def _fake_group(world: int) -> None:
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def _unsharded_cost(arch: str, variant: str) -> dict:
+    """The cost of the unsharded train step of ``arch`` at ``variant``, on
+    ``meta``, recorded as any plain call is."""
+    from repro_torch import stages
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.cells import apply_variant, sds
+    from repro_torch.models import transformer as ttf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    cfg = apply_variant(get_config(arch), variant)
+    params = ttf.init(0, cfg, device="meta")
+    tok = sds((DRY_BATCH, DRY_SEQ), torch.int32)
+    w = stages.wrap(ttf.make_train_step(cfg, AdamWConfig()),
+                    "test.unsharded_step",
+                    stages.signature_of(extra=(("arch", arch),)))
+    comp = w.lower(params, adamw_init(params), dict(tokens=tok, labels=tok),
+                   keep_args=True).compile()
+    return comp.cost_analysis()
+
+
+def _expected_arg_bytes(arch: str, variant: str, mesh) -> int:
+    """The train cell's argument bytes on one rank by the specs' local
+    shapes: parameters, two float32 moments, the int32 count and the
+    batch."""
+    import math
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch.cells import apply_variant
+    from repro_torch.models import transformer as ttf
+    cfg = apply_variant(get_config(arch), variant)
+    policy = sh.make_policy(mesh, cfg.layout)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    params = ttf.init(0, cfg, device="meta")
+    specs = dict(sh.leaves_with_paths(sh.lm_param_specs(params, cfg,
+                                                        policy)))
+    total = 4                                        # the step count
+    for path, p in sh.leaves_with_paths(params):
+        n = math.prod(sh.local_shape(tuple(p.shape), specs[path], sizes))
+        total += n * (p.element_size() + 2 * 4)
+    rows = sh.local_shape((DRY_BATCH, DRY_SEQ),
+                          sh.Spec(policy.batch_axes), sizes)
+    return total + 2 * math.prod(rows) * 4
+
+
+def _cost_row(low) -> dict:
+    from repro_torch.roofline.hlo import parse_hlo_collectives
+    comp = low.compile()
+    mem = comp.memory_analysis()
+    return dict(cost=comp.cost_analysis(),
+                collectives=parse_hlo_collectives(comp.as_text()),
+                arg_bytes=mem.argument_size_in_bytes,
+                peak_bytes=mem.temp_size_in_bytes)
+
+
+def dryrun_recorder_checks() -> dict:
+    """Under a fake group of 4 ranks: the recorder on a (2, 2) sharded
+    matmul (on the CPU and on ``meta``), ``signature_of`` on a
+    ``DeviceMesh``, ``replicate_grad``'s backward."""
+    import types
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch import stages
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import diagnose
+    from repro_torch.launch import mesh as mesh_mod
+    _fake_group(4)
+    m22 = mesh_mod.make_test_mesh((2, 2), device="cpu")
+    m41 = mesh_mod.make_test_mesh((4, 1), device="cpu")
+    out = dict(sig22=stages.signature_of(mesh=m22,
+                                         data_axes=("data",)).mesh,
+               sig41=stages.signature_of(mesh=m41).mesh)
+    out["matmul"] = {}
+    for dev in ("cpu", "meta"):
+        a = DTensor.from_local(torch.ones(32, 8, device=dev), m22,
+                               (Shard(0), Shard(1)), run_check=False)
+        b = DTensor.from_local(torch.ones(8, 16, device=dev), m22,
+                               (Shard(0), Replicate()), run_check=False)
+        w = stages.wrap(lambda x, y: x @ y, f"test.matmul_{dev}",
+                        stages.signature_of(mesh=m22))
+        row = _cost_row(w.lower(a, b))
+        row["text"] = w.lower(a, b).compile().as_text()
+        row["analysis"] = diagnose.analyze(row["text"], top=3)
+        out["matmul"][dev] = row
+    g = DTensor.from_local(torch.ones(2, 3), m22, (Shard(0), Replicate()),
+                           run_check=False)
+    x = DTensor.from_local(torch.ones(4, 3), m22, (Replicate(), Replicate()),
+                           run_check=False)
+    with sh.use_policy(sh.make_policy(m22)):
+        y = sh.replicate_grad(x)
+        z = sh.grad_as_forward(g)
+    back = sh._GradTo.backward(
+        types.SimpleNamespace(placements=(Replicate(), Replicate())), g)[0]
+    out["grad_to"] = dict(
+        forward=[str(p) for p in y.placements] + [str(p) for p in
+                                                  z.placements],
+        same=isinstance(y, DTensor) and y.shape == x.shape,
+        backward=[str(p) for p in back.placements],
+        plain=sh.replicate_grad(g.to_local()) is not None)
+    return out
+
+
+def dryrun_train_cells() -> dict:
+    """Under a fake group of 4 ranks: the LM train cells of the five archs
+    (smoke widths) on a (4, 1) data-only mesh against their unsharded
+    steps, the D4M cells on (2, 2), and GNN refused."""
+    from repro_torch.launch import cells, probes
+    from repro_torch.launch import mesh as mesh_mod
+    _fake_group(4)
+    m22 = mesh_mod.make_test_mesh((2, 2), device="cpu")
+    m41 = mesh_mod.make_test_mesh((4, 1), device="cpu")
+    out = dict(train41={}, d4m={})
+    for arch in DENSE_ARCHS + MOE_ARCHS:
+        variant = smoke_variant(arch)
+        low, _ = cells.lower_cell(arch, "train_4k", m41, variant,
+                                  batch=DRY_BATCH, seq=DRY_SEQ)
+        row = _cost_row(low)
+        row["unsharded"] = _unsharded_cost(arch, variant)
+        row["expected_arg_bytes"] = _expected_arg_bytes(arch, variant, m41)
+        out["train41"][arch] = row
+    for shape in ("ingest_small", "query"):
+        low, meta = cells.lower_cell("d4m-stream", shape, m22,
+                                     device="cpu")
+        out["d4m"][shape] = dict(_cost_row(low), meta=meta)
+        out["d4m"][shape]["raw"] = probes.extract(low.compile())
+    try:
+        cells.lower_cell("gat-cora", "full_graph_sm", m22)
+    except NotImplementedError as e:
+        out["gnn_refused"] = str(e)
+    return out
+
+
+def dryrun_probe_checks() -> dict:
+    """Under a fake group of 4 ranks, on a (2, 2) mesh: the probes'
+    extrapolation and the full recording of LM cells at 5 layers (smoke
+    widths) and of the D4M ingest cell."""
+    from repro_torch.launch import cells, probes
+    from repro_torch.launch import mesh as mesh_mod
+    _fake_group(4)
+    m22 = mesh_mod.make_test_mesh((2, 2), device="cpu")
+    out = {}
+    for arch, shape in (("smollm-360m", "train_4k"),
+                        ("granite-moe-3b-a800m", "train_4k"),
+                        ("phi3-mini-3.8b", "prefill_32k"),
+                        ("deepseek-v2-236b", "decode_32k")):
+        variant = smoke_variant(arch, n_layers=5)
+        low, _ = cells.lower_cell(arch, shape, m22, variant,
+                                  batch=DRY_BATCH, seq=DRY_SEQ)
+        corr = probes.corrected_metrics(arch, shape, m22, variant,
+                                        batch=DRY_BATCH, seq=DRY_SEQ)
+        out[f"{arch}:{shape}"] = dict(raw=probes.extract(low.compile()),
+                                      **corr)
+    low, _ = cells.lower_cell("d4m-stream", "ingest_small", m22,
+                              device="cpu")
+    out["d4m-stream:ingest_small"] = dict(
+        raw=probes.extract(low.compile()),
+        **probes.corrected_metrics("d4m-stream", "ingest_small", m22,
+                                   device="cpu"))
+    return out
+
+
+def dryrun_tiny_production() -> dict:
+    """The counterpart of the reference's tiny production mesh lowering:
+    mistral-nemo's smoke config at ``num_microbatches=2`` on a (2, 2, 2)
+    ``("pod", "data", "model")`` mesh under a fake group of 8, through
+    ``cells.lower_cell``; its per-device collectives."""
+    from repro_torch.launch import cells
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.roofline.hlo import collective_bytes_by_type
+    _fake_group(8)
+    mesh = mesh_mod.make_test_mesh((2, 2, 2), ("pod", "data", "model"),
+                                   device="cpu")
+    low, meta = cells.lower_cell(
+        "mistral-nemo-12b", "train_4k", mesh,
+        smoke_variant("mistral-nemo-12b", num_microbatches=2),
+        batch=DRY_BATCH, seq=DRY_SEQ)
+    total, by_type = collective_bytes_by_type(low.compile().as_text())
+    return dict(total=total, by_type=by_type, tokens=meta["tokens"])
+
+
+def dryrun_cells_run(outdir: str) -> dict:
+    """``dryrun.run_cell`` on the (16, 16) production mesh (a fake group of
+    256, started by ``run_cell``), on the CPU and with the probes' check:
+    the D4M ``ingest_small`` cell and a ``long_500k`` skip."""
+    from repro_torch.launch import dryrun
+    return {f"{arch}:{shape}": dryrun.run_cell(arch, shape, "single",
+                                               "baseline", outdir,
+                                               verbose=False, device="cpu",
+                                               probes=True)
+            for arch, shape in (("d4m-stream", "ingest_small"),
+                                ("smollm-360m", "long_500k"))}
+
+
+def dryrun_metas(cell_list) -> dict:
+    """``cells.lower_cell``'s ``meta`` of each (arch, shape) on a (1, 1)
+    mesh under a fake group of 1, lowered on ``meta`` (no recording)."""
+    from repro_torch.launch import cells
+    from repro_torch.launch import mesh as mesh_mod
+    _fake_group(1)
+    mesh = mesh_mod.make_test_mesh((1, 1), device="cpu")
+    return {f"{a}:{s}": cells.lower_cell(a, s, mesh, device="meta")[1]
+            for a, s in cell_list}
+
+
+def run_child(name: str, *args, timeout: int = 600):
+    """Run one of the functions above in a fresh process (the fake group
+    is process-global, and no test worker may keep one); its result
+    comes back pickled."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.pkl")
+        code = (f"import sys, pickle\nsys.path[:0] = [{src!r}, {here!r}]\n"
+                f"import torch_parity\n"
+                f"out = torch_parity.{name}(*{args!r})\n"
+                f"pickle.dump(out, open({path!r}, 'wb'))\n")
+        res = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True,
+                             timeout=timeout)
+        assert res.returncode == 0, res.stderr[-4000:]
+        with open(path, "rb") as f:
+            return pickle.load(f)
