@@ -257,8 +257,17 @@ which the node-tiled kernel read.
    ``("data", "model")`` nccl mesh with 4 or more cards (one a rank),
    else a (1, 1) nccl mesh on the card: the loss within 5e-4 of the same
    step unsharded, every parameter within rtol 1e-4 plus a tenth of one
-   lr step, every local shard's shape its spec's arithmetic; (c)
-   ``make_production_mesh`` under a fake process group of 256 and of 512
+   lr step, every local shard's shape its spec's arithmetic; (d) on
+   the machine's CPU, 4 gloo ranks on a (2, 2) mesh under
+   ``make_policy(mesh, "dp")`` (the GNN and recsys cells' layout): two
+   ``gnn.make_train_step`` steps of GAT (node loss on 16 seeds), GIN
+   (batched molecules), GatedGCN and GraphCast (the r = 2 multimesh)
+   smoke configs and one DCN-v2 dense step, each from the same
+   parameters unsharded, losses within 5e-4, parameters within rtol
+   1e-4 plus a tenth of one lr step, local shards as their specs; DCN-v2's
+   ``serve_scores`` and ``retrieval_topk`` (candidates over both axes)
+   sharded equal to unsharded (rtol 1e-6, top-k indices exact, no ties);
+   (c) ``make_production_mesh`` under a fake process group of 256 and of 512
    ranks, in a child process each: every leaf of the five LM full
    configs, DCN-v2 and GraphCast on ``meta`` placed on it with the local
    shape its spec gives — shapes only, nothing runs.  Rehearse with
@@ -267,7 +276,12 @@ which the node-tiled kernel read.
    ``launch/cells.lower_cell``: the D4M ``ingest_small``, ``ingest_wide``
    and ``query`` cells at ``d4m_stream.config()`` on the kernel route
    (the fleet's one-rank mesh; ``merge_multi`` launches) and
-   ``smollm-360m``'s train step at 4 x 1024 in float32 on a (1, 1) nccl
+   ``smollm-360m``'s train step at 4 x 1024 in float32, GraphCast's train
+   step at ``minibatch_lg`` (full width: d 512, 16 layers, remat; a
+   seeded graph at the node flow's 169,984 nodes and 168,960 edges) and
+   DCN-v2's ``serve_bulk`` on the kernel route (the 6.04 GB table, batch
+   262,144; ``embedding_bag`` launches, its scores held within rtol 1e-6
+   of the gather route's on the same arguments) on a (1, 1) nccl
    mesh; each cell's recorded call (``cost_analysis``,
    ``memory_analysis``, the collectives of ``as_text``) and the same call
    timed (median of 3 after a warm-up, each ended by a synchronize); the
@@ -279,8 +293,9 @@ which the node-tiled kernel read.
    run beside it: ``dryrun.run_cell`` on the production meshes under a
    fake group of 256 and 512 ranks for smollm-360m's and granite-moe's
    ``train_4k`` (granite's also on ``multi``), smollm's ``prefill_32k``
-   and ``decode_32k`` and a ``long_500k`` skip (the other three archs'
-   ``train_4k`` cells take minutes each: the dry-run CLI runs them):
+   and ``decode_32k``, a ``long_500k`` skip, DCN-v2's ``train_batch`` and
+   GraphCast's ``ogb_products`` (the other three archs' ``train_4k``
+   cells take minutes each: the dry-run CLI runs them):
    every status ``ok`` or ``skip``, collective bytes above 0,
    ``fits_hbm`` printed.  Rehearse
    with ``tests/test_torch_chip_smoke.py::test_dryrun_phase_on_cpu``.
@@ -301,7 +316,9 @@ warm-up's eager batch, then replays; a captured graph's launches are
 counted at each replay), ``phase9_replay_launches`` and
 ``phase15_launches_per_replay``, ``phase17_launches`` (phase 17
 (a)'s, summed over each P's ranks) and ``phase18_launches`` (phase 18
-(a)'s D4M cells: recorded, warm-up and timed calls).
+(a)'s D4M cells: recorded, warm-up and timed calls); the
+``embedding_bag`` row's ``phase18_launches`` are phase 18 (a)'s
+``serve_bulk`` cell's.
 """
 from __future__ import annotations
 
@@ -3603,6 +3620,17 @@ MESH_JOBS = tuple((arch, True, 8, 32) for arch in (
 
 
 GRAPHCAST_D_FEAT = 100          # GNN_SHAPES["ogb_products"]["d_feat"]
+# (d) on the machine's CPU, a (2, 2) gloo mesh under make_policy(mesh,
+# "dp"): (arch, seed_count) at smoke widths — GAT's node loss on 16 seeds,
+# GIN's graph task on batched molecules, GatedGCN's node task, GraphCast's
+# regression on the r = 2 multimesh (162 nodes: the nodes stay whole, the
+# edges are cut), DCN-v2's dense step, serving and retrieval
+MODEL_MESH_JOBS = (("gat-cora", 16), ("gin-tu", 0), ("gatedgcn", 0),
+                   ("graphcast", 0), ("dcn-v2", 0))
+MODEL_MESH_LR = dict(gnn=1e-2, recsys=1e-3)
+MODEL_MESH_STEPS = dict(gnn=2, recsys=1)
+SCORE_RTOL = 1e-6               # sharded serving == unsharded
+MESH_TOPK = 8
 
 
 def shard_fleet_rank(mesh, args, ckpt_dir: str, step: int, n_new: int
@@ -3840,6 +3868,188 @@ def lm_mesh_rank(fleet, shape, jobs, lr: float) -> list:
 
 
 
+def model_mesh_inputs(torch, arch: str, seed_count: int):
+    """(config, parameters, batch, train step, steps, lr) of one phase 17
+    (d) job, on the CPU from fixed seeds: each call gives the same
+    numbers."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data import graphs, synthetic
+    from repro_torch.models import dcn, gnn
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = arch_registry.get_smoke_config(arch)
+    fam = cfg.family
+    lr = MODEL_MESH_LR[fam]
+    if fam == "recsys":
+        batch = synthetic.recsys_batch(3, 16, cfg.n_dense, cfg.n_sparse,
+                                       vocab_per_field=1000, device="cpu")
+        return (cfg, dcn.init(0, cfg, device="cpu"), batch,
+                dcn.make_train_step(cfg, AdamWConfig(lr=lr)),
+                MODEL_MESH_STEPS[fam], lr)
+    if arch == "graphcast":
+        _, src, dst = graphs.icosahedral_multimesh(2)
+        gen = torch.Generator().manual_seed(11)
+        batch = dict(node_feat=torch.randn((162, 8), generator=gen),
+                     edge_src=torch.as_tensor(src),
+                     edge_dst=torch.as_tensor(dst),
+                     targets=torch.randn((162, 6), generator=gen))
+        task, d_feat, n_out = "regress", 8, 6
+    elif arch == "gin-tu":
+        batch = graphs.batched_molecules(2, 8, 10, 20, 7, 3, device="cpu")
+        task, d_feat, n_out = "graph", 7, 3
+    else:
+        batch = graphs.random_graph(1, 96, 400, 12, 5, device="cpu")
+        task, d_feat, n_out = "node", 12, 5
+    return (cfg, gnn.init(3, cfg, d_feat, n_out, device="cpu"), batch,
+            gnn.make_train_step(cfg, AdamWConfig(lr=lr), task, seed_count),
+            MODEL_MESH_STEPS[fam], lr)
+
+
+def _full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def model_mesh_rank(fleet, jobs) -> list:
+    """One rank of phase 17 (d) (``spawn_fleet``, gloo on the CPU): for each
+    (arch, seed_count) of ``jobs``, the train steps unsharded, then from the
+    same parameters on a (2, 2) ``("data", "model")`` mesh under
+    ``make_policy(mesh, "dp")`` — the parameters placed by
+    ``gnn_param_specs`` / ``recsys_param_specs``, the batch by the cells'
+    ``_bsh``; every local shard's shape held to its spec's arithmetic.
+    DCN-v2 also serves the batch and ranks candidates sharded over every
+    axis for one whole query, against the same calls unsharded.  Returns
+    each job's losses, worst parameter excess over ``rtol * |p| + lr /
+    10``, the sharded leaves and the serving errors."""
+    import torch
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import cells
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import common, dcn
+    from repro_torch.optim.adamw import adamw_init
+    torch.set_num_threads(1)
+    mesh = mesh_mod.make_test_mesh((2, 2), MESH_AXES, "cpu")
+    coord = dict(zip(MESH_AXES, mesh.get_coordinate()))
+    sizes = dict(zip(MESH_AXES, mesh.shape))
+    policy = sh.make_policy(mesh, "dp")
+    whole = sh.Sharding(mesh, (sh.Replicate(),) * 2)
+    out = []
+    for arch, seed_count in jobs:
+        t0 = time.perf_counter()
+        cfg, params, batch, step, steps, lr = model_mesh_inputs(
+            torch, arch, seed_count)
+        rec = dict(arch=arch, seed_count=seed_count, steps=steps, lr=lr)
+        specs_of = sh.recsys_param_specs if cfg.family == "recsys" \
+            else sh.gnn_param_specs
+        specs = specs_of(params, cfg, policy)
+        placed = common.with_leaves(params, common.tree_map(
+            sh.place, params, sh.to_shardings(specs, mesh)))
+        sbatch = {k: sh.place(v, cells._bsh(mesh, policy.batch_axes, v))
+                  for k, v in batch.items()}
+        if cfg.family == "recsys":
+            cands = torch.randn((64, cfg.mlp[-1]),
+                                generator=torch.Generator().manual_seed(2))
+            query = {k: batch[k][:1] for k in ("dense", "sparse")}
+            scores = dcn.serve_scores(params, batch, cfg)
+            values, indices = dcn.retrieval_topk(params, query, cands, cfg,
+                                                 k=MESH_TOPK)
+            ranked = (dcn.query_embedding(params, query, cfg)
+                      @ cands.T)[0].sort().values
+            with sh.use_policy(policy):
+                got = dcn.serve_scores(placed, sbatch, cfg).full_tensor()
+                v1, i1 = dcn.retrieval_topk(
+                    placed, {k: sh.place(v, whole) for k, v in query.items()},
+                    sh.place(cands, sh.to_shardings(sh.Spec(MESH_AXES, None),
+                                                    mesh)), cfg, k=MESH_TOPK)
+            rec.update(
+                score_err=float(((got - scores).abs()
+                                 / scores.abs()).max()),
+                topk_value_err=float(((v1.full_tensor() - values).abs()
+                                      / values.abs()).max()),
+                topk_equal=bool(torch.equal(i1.full_tensor(), indices)),
+                ties=bool((ranked[1:] == ranked[:-1]).any()))
+        opt, losses0 = adamw_init(params), []
+        for _ in range(steps):
+            params, opt, m = step(params, opt, batch)
+            losses0.append(float(m["loss"]))
+        want = {p: x.clone() for p, x in sh.leaves_with_paths(params)}
+        opt, losses1 = adamw_init(placed), []
+        with sh.use_policy(policy):
+            for _ in range(steps):
+                placed, opt, m = step(placed, opt, sbatch)
+                losses1.append(float(_full(m["loss"])))
+        worst, sharded = -math.inf, 0
+        spec_of = dict(sh.leaves_with_paths(specs))
+        for path, p in sh.leaves_with_paths(placed):
+            local = tuple(p.to_local().shape)
+            spec_local = sh.local_shape(tuple(p.shape), spec_of[path],
+                                        sizes, coord)
+            if local != spec_local:
+                raise AssertionError(f"{arch} {path}: local shard {local}, "
+                                     f"its spec {spec_of[path]} gives "
+                                     f"{spec_local}")
+            sharded += local != tuple(p.shape)
+            err = (p.full_tensor() - want[path]).abs() \
+                - MESH_PARAM_RTOL * want[path].abs()
+            worst = max(worst, float(err.max()))
+        rec.update(losses=losses1, unsharded_losses=losses0,
+                   param_excess=worst, leaves=len(want),
+                   sharded_leaves=sharded,
+                   batch_local={k: list(v.to_local().shape)
+                                for k, v in sbatch.items()},
+                   seconds=time.perf_counter() - t0)
+        out.append(rec)
+    return out
+
+
+def model_mesh_check(torch, tmp: str, card: str,
+                     jobs=MODEL_MESH_JOBS) -> list:
+    """Phase 17 (d): ``model_mesh_rank`` on 4 gloo ranks of the CPU, each
+    job's sharded losses within ``MESH_LOSS_TOL`` of the unsharded steps',
+    its parameters within ``MESH_PARAM_RTOL`` plus a tenth of one lr step
+    on every rank; DCN-v2's sharded scores and top-k values within
+    ``SCORE_RTOL``, its top-k indices equal (no ties among the scores).
+    Returns one record a job."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    got = mesh_mod.spawn_fleet(model_mesh_rank, 4, "gloo", "cpu", tmp,
+                               args=(jobs,))
+    wall = time.perf_counter() - t0
+    out = []
+    for i, (arch, seed_count) in enumerate(jobs):
+        rows = [r[i] for r in got]
+        r0 = rows[0]
+        what = f"{arch} smoke on a (2, 2) gloo CPU mesh"
+        for r in rows:
+            off = max(abs(a - b) for a, b in zip(r["losses"],
+                                                  r["unsharded_losses"]))
+            if off > MESH_LOSS_TOL:
+                raise AssertionError(f"{what}: sharded losses {r['losses']} "
+                                     f"vs unsharded {r['unsharded_losses']}")
+            if r["param_excess"] > r["lr"] / 10:
+                raise AssertionError(f"{what}: a parameter is off by "
+                                     f"{r['param_excess']} beyond rtol "
+                                     f"{MESH_PARAM_RTOL}")
+            if "score_err" in r and (
+                    r["ties"] or not r["topk_equal"]
+                    or max(r["score_err"], r["topk_value_err"]) > SCORE_RTOL):
+                raise AssertionError(f"{what}: sharded serving differs {r}")
+        rec = dict(r0, wall_s=wall,
+                   param_excess=max(r["param_excess"] for r in rows))
+        out.append(rec)
+        serving = (f"; serve_scores rel err {rec['score_err']:.3g}, top-"
+                   f"{MESH_TOPK} indices equal, values rel err "
+                   f"{rec['topk_value_err']:.3g}"
+                   if "score_err" in rec else "")
+        print(f"(d) {what}: {rec['steps']} step(s), losses "
+              f"{[round(x, 6) for x in rec['losses']]} == unsharded "
+              f"{[round(x, 6) for x in rec['unsharded_losses']]} (tol "
+              f"{MESH_LOSS_TOL}); params within rtol {MESH_PARAM_RTOL} + "
+              f"lr/10 (worst excess {rec['param_excess']:.3g}); "
+              f"{rec['sharded_leaves']} of {rec['leaves']} leaves sharded, "
+              f"batch local {rec['batch_local']}{serving}; {card}",
+              flush=True)
+    return out
+
+
 def production_shapes_check(torch, mesh) -> int:
     """Every leaf of the five LM full configs (layout ``"2d"``), DCN-v2's
     and GraphCast's (``"dp"``, as the reference's cells lay them out),
@@ -3998,8 +4208,8 @@ def sharding_phase(torch, args, ckpt_dir: str, step: int, device, card: str,
                    n_new: int = SHARD_GROW) -> dict:
     """Phase 17: (a) ``shard_fleet_check``; (b) ``lm_mesh_check`` of
     ``jobs`` (default: ``MESH_JOBS``) on each ``(backend, shape)``
-    of ``mesh_runs``; (c) ``production_meshes``.  Returns the
-    ``{"sharding": ...}`` record."""
+    of ``mesh_runs``; (d) ``model_mesh_check``; (c)
+    ``production_meshes``.  Returns the ``{"sharding": ...}`` record."""
     t0 = time.perf_counter()
     res = dict(fleet=shard_fleet_check(torch, args, ckpt_dir, step, n_new,
                                        device, tmp, card))
@@ -4007,6 +4217,7 @@ def sharding_phase(torch, args, ckpt_dir: str, step: int, device, card: str,
                  for rec in lm_mesh_check(torch, backend, shape,
                                           jobs or MESH_JOBS, device,
                                           tmp, card)]
+    res["models"] = model_mesh_check(torch, tmp, card)
     res["production"] = production_meshes(
         "cuda" if torch.device(device).type == "cuda" else "cpu", tmp)
     for p in res["production"]:
@@ -4025,21 +4236,26 @@ def sharding_phase(torch, args, ckpt_dir: str, step: int, device, card: str,
 DRYRUN_CARD_CELLS = (("d4m-stream", "ingest_small", "use_kernel=1"),
                      ("d4m-stream", "ingest_wide", "use_kernel=1"),
                      ("d4m-stream", "query", "use_kernel=1"),
-                     ("smollm-360m", "train_4k", "dtype=float32"))
+                     ("smollm-360m", "train_4k", "dtype=float32"),
+                     ("graphcast", "minibatch_lg", "baseline"),
+                     ("dcn-v2", "serve_bulk", "use_kernel=1"))
 DRYRUN_LM_CUT = dict(batch=4, seq=1024)
 DRYRUN_REPS = 3                 # timed calls a cell, after one warm-up
 # (b) on the machine's CPU, the production meshes under a fake group:
 # (mesh, arch, shape, variant).  Cut to smollm-360m and granite-moe: a
 # full-size train_4k cell records in one to four minutes of one core, so
 # phi3-mini's, mistral-nemo's and deepseek-v2's train_4k stay with the
-# dry-run CLI (PERF.md)
+# dry-run CLI (PERF.md); DCN-v2's train_batch and GraphCast's
+# ogb_products record in seconds
 DRYRUN_HOST_CELLS = (
     ("single", "smollm-360m", "train_4k", "baseline"),
     ("single", "granite-moe-3b-a800m", "train_4k", "baseline"),
     ("multi", "granite-moe-3b-a800m", "train_4k", "baseline"),
     ("single", "smollm-360m", "prefill_32k", "baseline"),
     ("single", "smollm-360m", "decode_32k", "baseline"),
-    ("single", "smollm-360m", "long_500k", "baseline"))
+    ("single", "smollm-360m", "long_500k", "baseline"),
+    ("single", "dcn-v2", "train_batch", "baseline"),
+    ("single", "graphcast", "ogb_products", "baseline"))
 DRYRUN_HOST_TIMEOUT = 900       # seconds a host cell may take
 
 
@@ -4131,16 +4347,35 @@ def _fraction(x) -> str:
     return "null" if x is None else f"{x:.3f}"
 
 
+def plain_route_err(torch, arch: str, variant: str, args, out,
+                    mesh) -> float:
+    """The largest relative difference of a kernel-route serve cell's
+    scores ``out`` from the gather route's on the same arguments, under
+    the cell's policy (the plain route launches no kernel)."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import cells
+    from repro_torch.models import dcn
+    cfg = dataclasses.replace(cells.apply_variant(
+        arch_registry.get_config(arch), variant), use_kernel=False)
+    with sh.use_policy(sh.make_policy(mesh, "dp")):
+        want = dcn.serve_scores(*args, cfg)
+    got, want = out.full_tensor(), want.full_tensor()
+    return float(((got - want).abs() / want.abs()).max())
+
+
 def dryrun_card(torch, device, cells_, lm_cut: dict, reps: int, tmp: str,
                 card: str) -> list:
     """Phase 18 (a): each cell through ``cells.lower_cell`` on the card — a
-    D4M cell on the fleet's one-rank mesh, an LM cell on a (1, 1) mesh of
-    the same one-rank group (nccl on the card, gloo on the CPU) — its
-    recorded call's cost, memory and collectives, and the same call timed
-    (median of ``reps`` after a warm-up, each on fresh clones of the
-    lowered arguments, ended by a synchronize) against the roofline bound
-    at the dtype's peak (``dryrun.hw_for``).  A bound above the measured
-    time fails: the count would overstate the work."""
+    D4M cell on the fleet's one-rank mesh, an LM, GNN or recsys cell on a
+    (1, 1) mesh of the same one-rank group (nccl on the card, gloo on the
+    CPU) — its recorded call's cost, memory and collectives, and the same
+    call timed (median of ``reps`` after a warm-up, each on fresh clones
+    of the lowered arguments, ended by a synchronize) against the roofline
+    bound at the dtype's peak (``dryrun.hw_for``).  A bound above the
+    measured time fails: the count would overstate the work.  A recsys
+    serve cell on the kernel route (``use_kernel``) has its last timed
+    call's scores held within ``SCORE_RTOL`` of the gather route's."""
     import copy
 
     import torch.distributed as dist
@@ -4159,10 +4394,10 @@ def dryrun_card(torch, device, cells_, lm_cut: dict, reps: int, tmp: str,
         fleet = mesh_mod.make_fleet_mesh(backend, device)
         dmesh = mesh_mod.make_test_mesh((1, 1), MESH_AXES, device)
         for arch, shape, variant in cells_:
-            lm = arch_registry.family(arch) == "lm"
+            fam = arch_registry.family(arch)
             low, meta = cells.lower_cell(
-                arch, shape, dmesh if lm else fleet, variant, device=device,
-                **(lm_cut if lm else {}))
+                arch, shape, fleet if fam == "d4m" else dmesh, variant,
+                device=device, **(lm_cut if fam == "lm" else {}))
             comp = low.compile()
             _peak_reset(torch, device)
             before = registry.launches()
@@ -4180,7 +4415,7 @@ def dryrun_card(torch, device, cells_, lm_cut: dict, reps: int, tmp: str,
                 args = copy.deepcopy(low.args)
                 _sync(torch, device)
                 t0 = time.perf_counter()
-                comp(*args)
+                result = comp(*args)
                 _sync(torch, device)
                 if i:
                     times.append(time.perf_counter() - t0)
@@ -4205,6 +4440,20 @@ def dryrun_card(torch, device, cells_, lm_cut: dict, reps: int, tmp: str,
                 record_s=record_s,
                 recorded_launches={k: after[k] - before[k] for k in after
                                    if after[k] != before[k]})
+            if fam == "recsys" and meta["kind"] == "serve" and \
+                    cells.apply_variant(arch_registry.get_config(arch),
+                                        variant).use_kernel:
+                rec["plain_route_rel_err"] = plain_route_err(
+                    torch, arch, variant, low.args, result, dmesh)
+                if not rec["plain_route_rel_err"] <= SCORE_RTOL:
+                    raise AssertionError(
+                        f"{arch} {shape}: the kernel route's scores differ "
+                        f"from the gather route's by "
+                        f"{rec['plain_route_rel_err']} (rtol {SCORE_RTOL})")
+                print(f"(a) {arch} {shape}: kernel route == gather route, "
+                      f"scores rel err {rec['plain_route_rel_err']:.3g}",
+                      flush=True)
+            del result
             if bound_ms > ms:
                 raise AssertionError(
                     f"{arch} {shape}: roofline bound {bound_ms:.4f} ms > "
@@ -4235,8 +4484,8 @@ def dryrun_phase(torch, device, card: str, tmp: str, *,
     """Phase 18: (b)'s children started first (they run on the host's
     CPU while (a) runs on the card), then ``dryrun_card`` (a), then (b)'s
     records joined: every cell ``ok`` or ``skip``, collective bytes above
-    0.  Returns the ``{"dryrun": ...}`` record; ``merge_multi`` holds (a)'s
-    launches."""
+    0.  Returns the ``{"dryrun": ...}`` record; ``merge_multi`` and
+    ``embedding_bag`` hold (a)'s launches."""
     from repro_torch.kernels import registry
     t0 = time.perf_counter()
     procs = start_host_cells(host_cells, tmp)
@@ -4257,6 +4506,7 @@ def dryrun_phase(torch, device, card: str, tmp: str, *,
     return dict(card=card_recs,
                 host=[{k: r[k] for k in keep if k in r} for r in host],
                 merge_multi=launches["hier_merge.merge_multi"],
+                embedding_bag=launches["embedding_bag.embedding_bag"],
                 wall_s=time.perf_counter() - t0)
 
 
@@ -4581,7 +4831,8 @@ def main() -> int:
 
     phase("17 the sharding layer: the fleet restored and resized under "
           "Shard(0) on gloo ranks sharing the card, an FSDP x TP LM step on "
-          "a DeviceMesh, the production meshes (shapes only)")
+          "a DeviceMesh, the GNN and DCN-v2 steps on a (2, 2) gloo CPU "
+          "mesh, the production meshes (shapes only)")
     gc.collect()
     torch.cuda.empty_cache()
     mesh_runs = [("nccl", (2, 2) if n_cards >= 4 else (1, 1))]
@@ -4595,16 +4846,20 @@ def main() -> int:
     fault_tmp.cleanup()
     print(f"phase 17 wall {sharded['wall_s']:.1f} s; {card}", flush=True)
 
-    phase("18 the dry-run tooling: D4M cells and smollm-360m's train step "
-          "recorded on the card against their roofline bound; the "
-          "production meshes' LM cells recorded on the host under a fake "
-          "group")
+    phase("18 the dry-run tooling: D4M cells, smollm-360m's train step, "
+          "GraphCast's minibatch_lg step and DCN-v2's serve_bulk on the "
+          "kernel route recorded on the card against their roofline bound; "
+          "the production meshes' LM, DCN-v2 and GraphCast cells recorded "
+          "on the host under a fake group")
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         dried = dryrun_phase(torch, "cuda", card, tmp)
     if dried["merge_multi"] == 0:
         raise AssertionError("phase 18's D4M cells launched no merge_multi")
+    if dried["embedding_bag"] == 0:
+        raise AssertionError("phase 18's DCN-v2 serve_bulk cell launched no "
+                             "embedding_bag")
     print(f"phase 18 wall {dried['wall_s']:.1f} s; {card}", flush=True)
     fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
                       for r in fleet["runs"]}
@@ -4652,6 +4907,7 @@ def main() -> int:
         f"gloo P={r['ranks']}": r["merge_multi"]
         for r in sharded["fleet"]["runs"]}
     kernels[0]["phase18_launches"] = dried["merge_multi"]
+    kernels[2]["phase18_launches"] = dried["embedding_bag"]
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": served, "card": card}))
     print(json.dumps({"train_lm": trained, "card": card}))

@@ -76,9 +76,30 @@ operand with ``like(t, x)`` as a replicated DTensor on ``x``'s mesh
     backward's ``index_add_``);
   * ``like``: the positions (``transformer.forward``), ``apply_rope``'s
     frequencies, ``chunked_attention``'s running max, denominator,
-    accumulator and causal mask, and the dense layers' zero aux loss —
-    tensors built by ``arange`` / ``full`` / ``zeros`` that meet a
-    DTensor;
+    accumulator and causal mask, the dense layers' zero aux loss,
+    DCN-v2's field sizes and offsets (``dcn.global_ids``) and ``bce``'s
+    zero, and the GNN regression's zero accuracy — tensors built by
+    ``arange`` / ``full`` / ``zeros`` / ``tensor`` that meet a DTensor;
+  * ``gather_rows``: the GNN layers' ``h[src]`` / ``h[dst]`` and the edge
+    softmax's reads of per-node maxima and sums — node-sharded features
+    read by edge-sharded ids (the features gathered whole once a layer,
+    the rows read locally, the backward a reduce-scatter of a partial
+    sum);
+  * ``scatter_rows``: ``gnn._scatter_sum`` (the ``index_add_`` and the
+    ``segment_agg`` kernel route), ``segment_max`` and ``graph_readout``
+    — each rank reduces its own edges (or nodes) into a whole-size
+    buffer, and the partial results are reduce-scattered to the nodes'
+    (or graphs') sharding: ``[N, D]`` moves, never the ``[E, D]``
+    messages;
+  * ``lookup_rows``: ``dcn.embed_lookup``, vocab-parallel — the ids
+    gathered whole, each rank's rows of its own block of the table
+    (sharded over every mesh axis) looked up by the gather or by the
+    ``embedding_bag`` kernel on the local block (ids relative to the
+    block's start, clamped into it, weight 0 outside it), the partial
+    rows reduce-scattered to the batch; the table's gradient is added
+    into its block.  The table is never gathered;
+  * ``full_rows``: the GNN edge state built beside the edge ids
+    (GatedGCN's zeros, GraphCast's ones), sharded as the edges;
   * ``under_current_policy``: a remat layer (``transformer.forward``,
     ``gnn._layer``) re-enters the caller's policy when the backward
     recomputes it;
@@ -87,9 +108,11 @@ operand with ``like(t, x)`` as a replicated DTensor on ``x``'s mesh
     gradient first redistributed to its parameter's placements; the
     global norm is the one collective (``full_tensor``).
 
-The five LM archs' steps execute under a policy; the DCN-v2 and GNN
-paths carry their ``constrain`` calls but are not executed sharded (the
-reference lowers them only).
+The five LM archs' steps, the four GNN kinds' train steps and DCN-v2's
+dense train step, ``serve_scores`` and ``retrieval_topk`` execute under
+a policy.  DCN-v2's hier step (``make_train_step_hier``) is not run
+sharded: the reference's cell for it cannot be built (its ``"hier"``
+variant is refused by ``apply_variant``).
 
 DTensor returns its operand unchanged for ``<<``, ``>>`` and ``&`` with
 an int (torch 2.13): code that may meet a DTensor multiplies instead
@@ -104,7 +127,7 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import resolve_device
 
@@ -283,15 +306,22 @@ def constrain(x, *logical, divisible_dims: bool = True):
         raise TypeError("constrain under a sharding policy takes a DTensor, "
                         f"got a plain {type(x).__name__} of shape "
                         f"{tuple(x.shape)}")
+    return x.redistribute(pol.mesh, _constrained(pol, x.shape, logical,
+                                                 divisible_dims))
+
+
+def _constrained(pol: ShardingPolicy, shape, logical,
+                 divisible_dims: bool = True) -> tuple:
+    """The placements ``constrain`` gives a ``shape`` tensor."""
     sizes = _mesh_shape(pol.mesh)
     specs = []
-    for dim, logical_ax in zip(x.shape, logical):
+    for dim, logical_ax in zip(shape, logical):
         ax = pol.resolve(logical_ax)
         if ax is not None and divisible_dims and \
                 dim % math.prod(sizes[a] for a in _axes(ax)) != 0:
             ax = None
         specs.append(ax)
-    return x.redistribute(pol.mesh, to_placements(Spec(*specs), pol.mesh))
+    return to_placements(Spec(*specs), pol.mesh)
 
 
 def replicate(x):
@@ -399,6 +429,220 @@ def under_current_policy(fn):
         with use_policy(pol):
             return fn(*args, **kwargs)
     return run
+
+
+# ------------------------------------------ row gathers, scatters, lookups ---
+
+def _whole(mesh) -> tuple:
+    return (Replicate(),) * mesh.ndim
+
+
+def _partial_over(placements, reduce_op: str = "sum") -> tuple:
+    """A partial result's placements: ``Partial`` on every mesh dim where
+    ``placements`` shard the rows it was made from (each rank holds a part),
+    ``Replicate()`` where they do not (the ranks hold the same part)."""
+    return tuple(Partial(reduce_op) if isinstance(p, Shard) else Replicate()
+                 for p in placements)
+
+
+def _row_placements(ids) -> tuple:
+    placements = tuple(ids.placements)
+    if any(not isinstance(p, (Shard, Replicate)) or
+           (isinstance(p, Shard) and p.dim != 0) for p in placements):
+        raise ValueError(f"rows must be sharded on dim 0 or replicated, "
+                         f"not {placements}")
+    return placements
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` for each of ``ids``: one all-gather of the table, the
+    rows of each rank's block of the ids looked up locally, each result
+    sharded as its ids.  The backward adds the rows' gradients into a
+    whole-size buffer on each rank (a partial sum) and reduce-scatters it
+    to the table's placements."""
+
+    @staticmethod
+    def forward(ctx, table, placements, *ids):
+        mesh = table.device_mesh
+        whole = table.redistribute(mesh, _whole(mesh)).to_local()
+        local = [i.to_local().long() for i in ids]
+        ctx.save_for_backward(*local)
+        ctx.mesh, ctx.shape = mesh, table.shape
+        ctx.placements, ctx.ids_placements = tuple(table.placements), \
+            placements
+        tail = tuple(table.shape[1:])
+        return tuple(from_shard(whole[l], Sharding(mesh, placements),
+                                (i.shape[0],) + tail)
+                     for l, i in zip(local, ids))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, part = ctx.mesh, None
+        for g, l in zip(grads, ctx.saved_tensors):
+            if g is None:
+                continue
+            if tuple(g.placements) != ctx.ids_placements:
+                g = g.redistribute(mesh, ctx.ids_placements)
+            g = g.to_local()
+            if part is None:
+                part = g.new_zeros(ctx.shape)
+            part.index_add_(0, l, g)
+        if part is None:
+            return (None,) * (2 + len(grads))
+        grad = from_shard(part, Sharding(mesh, _partial_over(
+            ctx.ids_placements)), ctx.shape)
+        return (grad.redistribute(mesh, ctx.placements), None) \
+            + (None,) * len(grads)
+
+
+def gather_rows(table, *ids):
+    """``tuple(table[i] for i in ids)``.  Under a policy, for a DTensor
+    ``table`` (node features sharded over the nodes) and row ids sharded
+    over their dim 0 (edge ids sharded over the edges, all alike): the
+    table is gathered whole once for all the ids, and each result is
+    sharded as its ids (``_GatherRows``; DTensor has no rule for an index
+    of a sharded source by a sharded index)."""
+    if current_policy() is None or not isinstance(table, DTensor):
+        return tuple(table[i.long()] for i in ids)
+    ids = [like(i, table) for i in ids]
+    placements = _row_placements(ids[0])
+    if any(tuple(i.placements) != placements for i in ids):
+        raise ValueError("gather_rows: the ids are sharded unlike each other")
+    return _GatherRows.apply(table, placements, *ids)
+
+
+class _ScatterRows(torch.autograd.Function):
+    """``local_fn`` of each rank's block of ``x`` and ``ids`` into a
+    whole-size ``[n, ...]`` buffer (a partial result), reduced to
+    ``out_placements`` (a reduce-scatter).  The backward of the sum gathers
+    the result's gradient whole and reads each rank's rows of it (ids
+    outside ``[0, n)`` get 0)."""
+
+    @staticmethod
+    def forward(ctx, x, ids, n, local_fn, reduce_op, out_placements):
+        mesh = x.device_mesh
+        local = ids.to_local()
+        part = local_fn(x.to_local(), local, n)
+        ctx.save_for_backward(local)
+        ctx.mesh, ctx.n, ctx.shape = mesh, n, x.shape
+        ctx.placements = tuple(x.placements)
+        out = from_shard(part, Sharding(mesh, _partial_over(
+            x.placements, reduce_op)), (n,) + tuple(x.shape[1:]))
+        return out.redistribute(mesh, out_placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        (local,) = ctx.saved_tensors
+        whole = g.redistribute(ctx.mesh, _whole(ctx.mesh)).to_local()
+        whole = torch.cat([whole, whole.new_zeros((1,) + whole.shape[1:])])
+        local = local.long()
+        valid = (local >= 0) & (local < ctx.n)
+        gx = whole[torch.where(valid, local, ctx.n)]
+        return (from_shard(gx, Sharding(ctx.mesh, ctx.placements),
+                           ctx.shape), None, None, None, None, None)
+
+
+def scatter_rows(x, ids, n: int, local_fn, reduce_op: str = "sum"):
+    """``local_fn(x, ids, n)``: rows of ``x`` reduced by ``ids`` into
+    ``[n, ...]`` (a segment sum or max; ids outside ``[0, n)`` dropped).
+
+    Under a policy, for DTensors (edge messages and ids sharded over the
+    edges): each rank reduces its own edges into a whole-size buffer with
+    ``local_fn`` on plain tensors (a kernel wrapper may be one), and the
+    partial results are reduced to the ``"batch"`` sharding of the rows, as
+    ``constrain(out, "batch", None, ...)`` places them — a reduce-scatter
+    of ``[n, ...]``, not an all-gather of the ``[E, ...]`` messages
+    (``_ScatterRows``).  ``reduce_op="max"`` takes no gradient: its one use,
+    the shift of ``gnn.segment_softmax``, cancels in the softmax, so its
+    gradient is zero in exact arithmetic."""
+    pol = current_policy()
+    if pol is None or not isinstance(x, DTensor):
+        return local_fn(x, ids, n)
+    ids = like(ids, x)
+    placements = _row_placements(ids)
+    if reduce_op != "sum":
+        x = x.detach()
+    if tuple(x.placements) != placements:
+        x = x.redistribute(x.device_mesh, placements)
+    shape = (n,) + tuple(x.shape[1:])
+    out = _constrained(pol, shape, ("batch",) + (None,) * (len(shape) - 1))
+    return _ScatterRows.apply(x, ids, n, local_fn, reduce_op, out)
+
+
+class _BlockLookup(torch.autograd.Function):
+    """The vocab-parallel lookup: the ids gathered whole, each rank's rows
+    of its own block of the table looked up by ``local_fn(block, rel,
+    weights)`` with the ids taken relative to the block's start, clamped
+    into it, and weighted 0 outside it; the partial results reduced to
+    ``out_placements``.  The backward gathers the result's gradient whole
+    and adds each rank's rows into its block (``index_add_``): the table's
+    gradient stays row-sharded."""
+
+    @staticmethod
+    def forward(ctx, table, ids, local_fn, out_placements):
+        mesh = table.device_mesh
+        whole = ids.redistribute(mesh, _whole(mesh)).to_local()
+        block = local_slices(table.shape, Sharding(
+            mesh, tuple(table.placements)))[0]
+        n = block.stop - block.start
+        rel = whole.long() - block.start
+        weights = ((rel >= 0) & (rel < n)).to(torch.float32)
+        rel = torch.clamp(rel, 0, max(n - 1, 0))
+        part = local_fn(table.to_local(), rel, weights)
+        ctx.save_for_backward(rel, weights)
+        ctx.mesh, ctx.shape, ctx.n = mesh, table.shape, n
+        ctx.placements = tuple(table.placements)
+        out = from_shard(part, Sharding(mesh, _partial_over(
+            table.placements)), tuple(part.shape))
+        return out.redistribute(mesh, out_placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        rel, weights = ctx.saved_tensors
+        whole = g.redistribute(ctx.mesh, _whole(ctx.mesh)).to_local()
+        d = ctx.shape[-1]
+        rows = whole.unsqueeze(-2) * weights.unsqueeze(-1).to(whole.dtype)
+        grad = whole.new_zeros((ctx.n, d)).index_add_(
+            0, rel.reshape(-1), rows.reshape(-1, d))
+        return (from_shard(grad, Sharding(ctx.mesh, ctx.placements),
+                           ctx.shape), None, None, None)
+
+
+def lookup_rows(table, ids, local_fn, *logical):
+    """``local_fn(table, ids, None)`` (no weights): the rows
+    of ``table`` at ``ids`` ``[..., H]`` combined over the last dim into
+    ``[..., D]``.
+
+    Under a policy, for a DTensor ``table`` whose rows are sharded (over
+    every mesh axis: ``recsys_param_specs``' table) and DTensor ``ids``,
+    the table is never gathered: the ids are (``_BlockLookup``), each rank
+    looks up the rows of its block, and the partial results are reduced
+    to ``logical``'s placements (``constrain``'s rule).  ``local_fn`` takes
+    plain tensors (a kernel wrapper may be one) and must give rows of
+    weight 0 nothing."""
+    pol = current_policy()
+    if pol is None or not isinstance(table, DTensor):
+        return local_fn(table, ids, None)
+    _row_placements(table)
+    ids = like(ids, table)
+    shape = tuple(ids.shape[:-1]) + (table.shape[-1],)
+    return _BlockLookup.apply(table, ids, local_fn,
+                              _constrained(pol, shape, logical))
+
+
+def full_rows(ref, tail, fill, dtype):
+    """A ``(len(ref),) + tail`` tensor of ``fill`` on ``ref``'s device,
+    its rows sharded as the 1-D ``ref``'s (edge state built beside the edge
+    ids: no collective, no whole copy on a rank); a plain tensor when
+    ``ref`` is one."""
+    shape = (ref.shape[0],) + tuple(tail)
+    if not isinstance(ref, DTensor):
+        return torch.full(shape, fill, dtype=dtype, device=ref.device)
+    local = ref.to_local()
+    block = torch.full((local.shape[0],) + tuple(tail), fill, dtype=dtype,
+                       device=local.device)
+    return from_shard(block, Sharding(ref.device_mesh,
+                                      _row_placements(ref)), shape)
 
 
 def make_policy(mesh, layout: str = "2d") -> ShardingPolicy:

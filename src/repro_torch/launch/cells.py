@@ -1,5 +1,5 @@
 """Dry-run cell builders: (arch x input-shape x mesh) -> ``stages.Lowered``
-— the port of ``repro/launch/cells.py``, for the LM and D4M families.
+— the port of ``repro/launch/cells.py``.
 
 Every builder returns ``(lowered, meta)``.  ``meta`` carries what the
 roofline needs — token / update counts and MODEL_FLOPS estimates — with
@@ -37,8 +37,27 @@ global counts.  The query cell is ``global_degree_histogram_fn``'s one
 is a ``DeviceMesh`` (its every axis is a data axis) or a
 ``launch.mesh.FleetMesh``.
 
-GNN and recsys cells are not built: their steps do not run under a
-sharding policy yet (ROADMAP queue 1), and ``lower_cell`` says so.
+**A GNN or recsys cell** is the reference's too, under the ``"dp"``
+layout (no TP dim: the batch — nodes and edges, or examples — over every
+mesh axis): the parameters placed by ``gnn_param_specs`` /
+``recsys_param_specs``, AdamW's moments under their parameters'
+placements (``adamw_init`` of the placed tree: the reference's
+``_opt_shardings``; the count a plain 0-d tensor, as ``adamw_update``
+takes it), the batch by ``_bsh`` (dim 0 over the batch axes where they
+divide it), the GNN train step (``cells.gnn_train``) or
+DCN-v2's train, serve or retrieval step (``cells.recsys_train``,
+``cells.recsys_serve``, ``cells.recsys_retrieval``; the candidates over
+every axis, the batch-1 query whole) wrapped as an LM cell's is.  On
+``meta`` unless the caller names a device; then the graphs are seeded
+``data/graphs`` builders at the shape's real counts, padded to
+``_pad256`` (zero-feature nodes; extra edges from and to the first
+padding node, so no real node receives their messages), and the recsys
+batches ``data/synthetic.recsys_batch``.  The steps run sharded through
+``sharding.gather_rows`` / ``scatter_rows`` (GNN) and the vocab-parallel
+``sharding.lookup_rows`` (DCN-v2: the table is never gathered).  The
+reference's ``hier`` variant cannot be reached (``apply_variant(cfg,
+"hier")`` raises ``ValueError``, as the reference's does), so its branch
+is not ported.
 """
 from __future__ import annotations
 
@@ -52,10 +71,13 @@ from repro_torch import resolve_device, stages
 from repro_torch.configs import (D4M_SHAPES, GNN_SHAPES, LM_SHAPES,
                                  RECSYS_SHAPES, family, get_config)
 from repro_torch.distribution import sharding as sh
-from repro_torch.distribution.sharding import (lm_param_specs, make_policy,
+from repro_torch.distribution.sharding import (gnn_param_specs,
+                                               lm_param_specs, make_policy,
+                                               recsys_param_specs,
                                                to_shardings, use_policy)
 
 I32 = torch.int32
+F32 = torch.float32
 
 
 class SkipCell(Exception):
@@ -87,6 +109,15 @@ def _cell_sig(arch: str, shape: str, mesh, variant: str
 
 def _replicated(mesh) -> sh.Sharding:
     return sh.Sharding(mesh, (sh.Replicate(),) * mesh.ndim)
+
+
+def _bsh(mesh, bax, arr) -> sh.Sharding:
+    """Batch sharding on dim 0 when divisible, else replicated."""
+    sizes = mesh_shape(mesh)
+    if arr.shape[0] % math.prod(sizes[a] for a in bax) == 0:
+        return to_shardings(sh.Spec(tuple(bax), *([None] * (arr.dim() - 1))),
+                            mesh)
+    return _replicated(mesh)
 
 
 def _placed_tree(params, specs, mesh):
@@ -208,10 +239,189 @@ def _kv_read_flops(cfg, B, S):
     return cfg.n_layers * B * S * per_tok
 
 
+# ------------------------------------------------------------------ GNN -----
+
 def _pad256(n: int) -> int:
     """Pad node/edge/candidate counts to 2048 so these dims shard evenly
-    over every production mesh (up to all 512 devices)."""
+    over every production mesh (up to all 512 devices).  Real pipelines pad
+    identically: extra nodes carry zero features, extra edges run from and
+    to the first padding node (``_gnn_batch``)."""
     return -(-n // 2048) * 2048
+
+
+def _pad_rows(x: torch.Tensor, n: int, fill) -> torch.Tensor:
+    extra = torch.full((n - x.shape[0],) + tuple(x.shape[1:]), fill,
+                       dtype=x.dtype, device=x.device)
+    return torch.cat([x, extra])
+
+
+def _gnn_batch(cfg, info, n_out, dev, seed):
+    """(batch, seed_count) of a GNN shape: on ``meta`` the reference's
+    abstract batch (``_gnn_batch_abs``); on a device a seeded graph at the
+    shape's real counts, a ``full`` one padded to ``_pad256``."""
+    from repro_torch import generator
+    from repro_torch.data import graphs
+    kind = info["kind"]
+    if kind == "full":
+        n_real, e_real = info["n_nodes"], info["n_edges"]
+        n, e = _pad256(n_real), _pad256(e_real)
+        if e > e_real and n == n_real:
+            raise ValueError(f"{n_real} nodes need no padding: no padding "
+                             f"node takes the {e - e_real} padding edges")
+    elif kind == "sampled":
+        n, e = graphs.flow_sizes(info["batch_nodes"], info["fanouts"])
+        n_real, e_real = n, e
+    elif kind == "batched":
+        g, nn, ee = info["batch"], info["n_nodes"], info["n_edges"]
+        n, e = g * nn, g * ee
+    else:
+        raise ValueError(kind)
+    d_feat = info["d_feat"]
+    n_labels = info["batch"] if kind == "batched" else n
+    if dev.type == "meta":
+        batch = dict(node_feat=sds((n, d_feat), F32), edge_src=sds((e,), I32),
+                     edge_dst=sds((e,), I32))
+        if kind == "batched":
+            batch["graph_ids"] = sds((n,), I32)
+        labels, targets = sds((n_labels,), I32), sds((n, n_out), F32)
+    else:
+        if kind == "batched":
+            batch = graphs.batched_molecules(seed, g, nn, ee, d_feat,
+                                             info["n_classes"], device=dev)
+        else:
+            batch = graphs.random_graph(seed, n_real, e_real, d_feat,
+                                        info["n_classes"], device=dev)
+            batch = dict(node_feat=_pad_rows(batch["node_feat"], n, 0.0),
+                         edge_src=_pad_rows(batch["edge_src"], e, n_real),
+                         edge_dst=_pad_rows(batch["edge_dst"], e, n_real),
+                         labels=_pad_rows(batch["labels"], n, 0))
+        labels = batch.pop("labels")
+        targets = torch.randn((n, n_out), generator=generator(seed + 1, dev),
+                              device=dev)
+    if cfg.kind == "graphcast":
+        batch["targets"] = targets
+    else:
+        batch["labels"] = labels
+    return batch, (info["batch_nodes"] if kind == "sampled" else 0)
+
+
+def _gnn_cell(arch: str, shape: str, mesh, variant: str, device, seed
+              ) -> Tuple[Any, Dict]:
+    from repro_torch.models import gnn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = get_config(arch)
+    if variant != "baseline":
+        cfg = apply_variant(cfg, variant)
+    info = GNN_SHAPES[shape]
+    dev = torch.device(device or "meta")
+    # GNNs have no TP dim: folding the model axis into data parallelism
+    # shards nodes/edges over ALL devices
+    policy = make_policy(mesh, "dp")
+    n_out = cfg.n_vars if cfg.kind == "graphcast" else info["n_classes"]
+    task = gnn.task_for_shape(info["kind"], cfg.kind)
+    batch, seed_count = _gnn_batch(cfg, info, n_out, dev, seed)
+
+    params = gnn.init(seed, cfg, info["d_feat"], n_out, device=dev)
+    params = _placed_tree(params, gnn_param_specs(params, cfg, policy), mesh)
+    opt = adamw_init(params)
+    bax = policy.batch_axes
+    batch = {k: sh.place(v, _bsh(mesh, bax, v)) for k, v in batch.items()}
+    step = gnn.make_train_step(cfg, AdamWConfig(), task, seed_count)
+    lowered = _wrap(step, "cells.gnn_train",
+                    _cell_sig(arch, shape, mesh, variant), policy, mesh,
+                    donate_argnums=(0, 1)).lower(params, opt, batch)
+
+    e = batch["edge_src"].shape[0]
+    n = batch["node_feat"].shape[0]
+    d = cfg.d_hidden
+    # message-passing model flops: per edge gather+reduce (2d) + per node
+    # transforms (6*d^2 per node per layer as the GEMM core), x3 for
+    # fwd+bwd
+    meta = dict(arch=arch, shape=shape, family="gnn", kind=info["kind"],
+                n_nodes=n, n_edges=e, variant=variant,
+                model_flops=3.0 * cfg.n_layers * (2.0 * e * d
+                                                  + 6.0 * n * d * d),
+                tokens=n, dtype=cfg.dtype)
+    return lowered, meta
+
+
+# --------------------------------------------------------------- recsys -----
+
+def _recsys_cell(arch: str, shape: str, mesh, variant: str, device, seed
+                 ) -> Tuple[Any, Dict]:
+    from repro_torch.data.synthetic import recsys_batch, retrieval_batch
+    from repro_torch.models import dcn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = get_config(arch)
+    if variant != "baseline":
+        cfg = apply_variant(cfg, variant)
+    info = RECSYS_SHAPES[shape]
+    dev = torch.device(device or "meta")
+    policy = make_policy(mesh, "dp")   # no TP dim; batch over every axis
+    B = info["batch"]
+    bax = policy.batch_axes
+    sig = _cell_sig(arch, shape, mesh, variant)
+
+    params = dcn.init(seed, cfg, device=dev)
+    params = _placed_tree(params, recsys_param_specs(params, cfg, policy),
+                          mesh)
+    if dev.type == "meta":
+        batch = dict(dense=sds((B, cfg.n_dense), F32),
+                     sparse=sds((B, cfg.n_sparse), I32),
+                     labels=sds((B,), F32))
+    else:
+        batch = recsys_batch(seed, B, cfg.n_dense, cfg.n_sparse,
+                             multi_hot=cfg.multi_hot, device=dev)
+
+    d0 = cfg.d_interact
+    mlp_flops = sum(a * b for a, b in zip((d0,) + cfg.mlp, cfg.mlp))
+    fwd_flops_per_ex = 2.0 * (cfg.n_cross_layers * d0 * d0 + mlp_flops)
+    meta = dict(arch=arch, shape=shape, family="recsys", kind=info["kind"],
+                rows=cfg.total_rows, tokens=B, dtype=cfg.dtype,
+                variant=variant)
+
+    if info["kind"] == "train":
+        batch = {k: sh.place(v, _bsh(mesh, bax, v)) for k, v in batch.items()}
+        opt = adamw_init(params)
+        step = dcn.make_train_step(cfg, AdamWConfig())
+        lowered = _wrap(step, "cells.recsys_train", sig, policy, mesh,
+                        donate_argnums=(0, 1)).lower(params, opt, batch)
+        meta["model_flops"] = 3.0 * B * fwd_flops_per_ex
+    elif info["kind"] == "serve":
+        batch = {k: sh.place(batch[k], _bsh(mesh, bax, batch[k]))
+                 for k in ("dense", "sparse")}
+
+        def run(params, batch, cfg=cfg):
+            return dcn.serve_scores(params, batch, cfg)
+
+        lowered = _wrap(run, "cells.recsys_serve", sig, policy,
+                        mesh).lower(params, batch)
+        meta["model_flops"] = B * fwd_flops_per_ex
+    elif info["kind"] == "retrieval":
+        nc = _pad256(info["n_candidates"])
+        if dev.type == "meta":
+            cands = sds((nc, cfg.mlp[-1]), F32)
+        else:
+            cands = retrieval_batch(seed, B, nc, cfg.mlp[-1],
+                                    device=dev)["candidates"]
+        cands = sh.place(cands, to_shardings(
+            sh.Spec(tuple(mesh.mesh_dim_names), None), mesh))
+        # a batch-1 query cannot shard: the query side whole on every rank
+        batch = {k: sh.place(batch[k], _replicated(mesh))
+                 for k in ("dense", "sparse")}
+
+        def run(params, batch, cands, cfg=cfg):
+            return dcn.retrieval_topk(params, batch, cands, cfg, k=100)
+
+        lowered = _wrap(run, "cells.recsys_retrieval", sig, policy,
+                        mesh).lower(params, batch, cands)
+        meta["model_flops"] = B * fwd_flops_per_ex \
+            + 2.0 * B * nc * cfg.mlp[-1]
+    else:
+        raise ValueError(info["kind"])
+    return lowered, meta
 
 
 def scaled_cuts(cuts, block: int, growth: int = 8):
@@ -315,9 +525,9 @@ def lower_cell(arch: str, shape: str, mesh, variant: str = "baseline", *,
                seed: int = 0) -> Tuple[Any, Dict]:
     """``(lowered, meta)`` of one cell on ``mesh`` (a ``DeviceMesh`` over
     the process group; a D4M cell also takes a ``FleetMesh``).  ``device``
-    defaults to ``meta`` for an LM cell and to the card for a D4M cell
-    (``resolve_device``: it raises without one); an LM cell's ``batch`` /
-    ``seq`` (0: the shape's) cut a run that executes."""
+    defaults to ``meta`` for an LM, GNN or recsys cell and to the card for
+    a D4M cell (``resolve_device``: it raises without one); an LM cell's
+    ``batch`` / ``seq`` (0: the shape's) cut a run that executes."""
     fam = family(arch)
     shapes = dict(lm=LM_SHAPES, gnn=GNN_SHAPES, recsys=RECSYS_SHAPES,
                   d4m=D4M_SHAPES)[fam]
@@ -328,10 +538,8 @@ def lower_cell(arch: str, shape: str, mesh, variant: str = "baseline", *,
         return _lm_cell(arch, shape, mesh, variant, device, batch, seq, seed)
     if fam == "d4m":
         return _d4m_cell(arch, shape, mesh, variant, device, seed)
-    raise NotImplementedError(
-        f"{arch} ({fam}) cells are not built yet: its training step does "
-        f"not run under a sharding policy (ROADMAP queue 1: the "
-        f"sharding.like repairs in models/gnn.py and models/dcn.py)")
+    build = _gnn_cell if fam == "gnn" else _recsys_cell
+    return build(arch, shape, mesh, variant, device, seed)
 
 
 def all_cells():

@@ -1,5 +1,5 @@
 """Multi-pod dry run: lower and record every (arch x shape x mesh) cell —
-the port of ``repro/launch/dryrun.py``, for the LM and D4M families.
+the port of ``repro/launch/dryrun.py``.
 
 For each cell:
     lowered, meta = cells.lower_cell(arch, shape, mesh)   # placed args
@@ -29,14 +29,16 @@ The production meshes are ``launch/mesh.py``'s ``(16, 16)`` (``single``,
 process over a fake process group (``FakeStore``, backend ``"fake"``) —
 the counterpart of the reference's forced host device count.  The group
 is process-global, so ``main`` runs each mesh's cells in a child process
-of its own (``run_mesh``).  An LM cell runs on ``meta`` (shapes, no
-memory); a D4M cell runs one rank's instances on ``--device``, the card
-unless the caller names the CPU (a rehearsal).  Here ``compile_s`` is
-the time of the recorded call.
+of its own (``run_mesh``).  An LM, GNN or recsys cell runs on ``meta``
+(shapes, no memory); a D4M cell runs one rank's instances on
+``--device``, the card unless the caller names the CPU (a rehearsal).
+Here ``compile_s`` is the time of the recorded call.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch smollm-360m \\
         --shape train_4k --mesh single
+    python -m repro_torch.launch.dryrun --arch graphcast \\
+        --shape ogb_products --mesh single
     python -m repro_torch.launch.dryrun --all --mesh both --resume
     python -m repro_torch.launch.dryrun --arch d4m-stream \\
         --shape ingest_small --device cpu --probes
@@ -273,7 +275,7 @@ def main(argv=None):
     ap.add_argument("--variant", default="baseline",
                     help='config overrides, e.g. "num_microbatches=8"')
     ap.add_argument("--all", action="store_true",
-                    help="run every LM and D4M cell")
+                    help="run every cell")
     ap.add_argument("--resume", action="store_true",
                     help="skip cells whose result JSON already exists")
     ap.add_argument("--save-hlo", action="store_true",
@@ -281,21 +283,19 @@ def main(argv=None):
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--device", default=None,
                     help="where a D4M cell runs (default: the card; "
-                         "'cpu' to rehearse); an LM cell runs on meta")
+                         "'cpu' to rehearse); the other cells run on meta")
     ap.add_argument("--probes", action="store_true",
                     help="also run the layer / block probes as a check")
     args = ap.parse_args(argv)
 
     import multiprocessing
 
-    from repro_torch.configs import family
     from repro_torch.launch.cells import all_cells
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if not args.all and (args.arch is None or args.shape is None):
         ap.error("--arch and --shape required unless --all")
-    cells = ([c for c in all_cells() if family(c[0]) in ("lm", "d4m")]
-             if args.all else [(args.arch, args.shape)])
+    cells = all_cells() if args.all else [(args.arch, args.shape)]
 
     ctx = multiprocessing.get_context("spawn")
     failures = 0

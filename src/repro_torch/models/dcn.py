@@ -38,7 +38,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core import vassoc
-from repro_torch.distribution.sharding import constrain
+from repro_torch.distribution.sharding import constrain, like, lookup_rows
+from repro_torch.kernels import registry
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.models import common
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -101,24 +102,45 @@ def global_ids(sparse: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
     """[B, F] or [B, F, H] per-field ids -> stacked-table row ids."""
     if sparse.dim() == 2:
         sparse = sparse[..., None]
-    sizes = torch.tensor(cfg.table_sizes, dtype=torch.int32,
-                         device=sparse.device)
-    offs = torch.tensor(field_offsets(cfg), dtype=torch.int32,
-                        device=sparse.device)
+    sizes = like(torch.tensor(cfg.table_sizes, dtype=torch.int32,
+                              device=sparse.device), sparse)
+    offs = like(torch.tensor(field_offsets(cfg), dtype=torch.int32,
+                             device=sparse.device), sparse)
     return (sparse.to(torch.int32) % sizes[None, :, None]) \
         + offs[None, :, None]
 
 
+def _bags_gather(table: torch.Tensor, ids: torch.Tensor,
+                 weights) -> torch.Tensor:
+    """[..., H] ids -> [..., D]: the rows gathered and summed over H."""
+    rows = table[ids.long()]
+    if weights is not None:
+        rows = rows * weights[..., None].to(rows.dtype)
+    return torch.sum(rows, dim=-2)
+
+
+def _bags_kernel(table: torch.Tensor, ids: torch.Tensor,
+                 weights) -> torch.Tensor:
+    """``_bags_gather`` through the ``embedding_bag`` CUDA kernel."""
+    lead, hh = ids.shape[:-1], ids.shape[-1]
+    if weights is not None:
+        weights = weights.reshape(-1, hh)
+    out = eb_ops.embedding_bag(table, ids.reshape(-1, hh), weights)
+    return out.reshape(*lead, table.shape[-1]).to(table.dtype)
+
+
 def embed_lookup(table: torch.Tensor, sparse: torch.Tensor,
                  cfg: RecsysConfig) -> torch.Tensor:
-    """-> [B, n_sparse * embed_dim] (multi-hot bags sum-combined)."""
+    """-> [B, n_sparse * embed_dim] (multi-hot bags sum-combined).  Under a
+    policy the row-sharded table is looked up vocab-parallel
+    (``sharding.lookup_rows``): each rank reads its own block, with the
+    same gather or kernel on the local rows."""
     gids = global_ids(sparse, cfg)                       # [B, F, H]
-    b, f, hh = gids.shape
+    b, f, _ = gids.shape
     if cfg.use_kernel:
-        out = eb_ops.embedding_bag(table, gids.reshape(b * f, hh))
-        out = out.reshape(b, f, cfg.embed_dim).to(table.dtype)
-    else:
-        out = torch.sum(table[gids.long()], dim=2)       # [B, F, D]
+        registry.refuse_autograd("embedding_bag", table)
+    out = lookup_rows(table, gids, _bags_kernel if cfg.use_kernel
+                      else _bags_gather, "batch", None, None)  # [B, F, D]
     return constrain(out.reshape(b, f * cfg.embed_dim), "batch", None)
 
 
@@ -147,7 +169,7 @@ def bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     # ``maximum`` splits a tie too; ``relu`` and ``clamp`` give 0 or 1) and
     # jnp.abs's 1 (torch's ``abs`` gives 0; the ``where`` gives 1)
     x, y = logits.float(), labels.float()
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    zero = like(torch.zeros((), dtype=x.dtype, device=x.device), x)
     abs_x = torch.where(x >= 0, x, -x)
     return torch.mean(torch.maximum(x, zero) - x * y
                       + torch.log1p(torch.exp(-abs_x)))

@@ -27,6 +27,12 @@ reference's): a step with ``cfg.use_kernel`` raises
 Tasks: "node" (per-node classification), "graph" (readout
 classification), "regress" (per-node regression, GraphCast's
 weather-state prediction).
+
+Under a sharding policy (the cells' ``"dp"`` layout: nodes and edges over
+every mesh axis) the edge gathers go through ``sharding.gather_rows``,
+the destination and readout reductions through ``sharding.scatter_rows``
+(each rank reduces its own edges; the partial sums are reduce-scattered),
+and the edge state is built sharded as the edges (``full_rows``).
 """
 from __future__ import annotations
 
@@ -38,7 +44,9 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GNNConfig
-from repro_torch.distribution.sharding import (constrain,
+from repro_torch.distribution.sharding import (constrain, full_rows,
+                                               gather_rows, like,
+                                               scatter_rows,
                                                under_current_policy)
 from repro_torch.kernels.segment_agg import ops as seg_ops
 from repro_torch.models import common
@@ -55,9 +63,8 @@ class GNN(common.ParamTree):
 
 # ------------------------------------------------------------- primitives ---
 
-def _scatter_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: x [E, ...] summed by ids into [n, ...];
-    ids outside [0, n) are dropped."""
+def _scatter_sum_local(x: torch.Tensor, ids: torch.Tensor,
+                      n: int) -> torch.Tensor:
     valid = (ids >= 0) & (ids < n)
     ids = torch.where(valid, ids, n).long()
     out = torch.zeros((n + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
@@ -65,18 +72,32 @@ def _scatter_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_add_(0, ids, x)[:n]
 
 
+def _scatter_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: x [E, ...] summed by ids into [n, ...];
+    ids outside [0, n) are dropped.  Under a policy each rank sums its own
+    edges and the partial sums are reduce-scattered
+    (``sharding.scatter_rows``)."""
+    return scatter_rows(x, ids, n, _scatter_sum_local)
+
+
+def _segment_sum_kernel(messages: torch.Tensor, seg_ids: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    return seg_ops.segment_sum(messages, seg_ids,
+                               num_segments=n).to(messages.dtype)
+
+
 def _segment_sum(cfg: GNNConfig, messages: torch.Tensor,
                  seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Destination-node reduction; kernel path or ``index_add_`` path."""
+    """Destination-node reduction; kernel path or ``index_add_`` path (on
+    each rank's own edges under a policy)."""
     if cfg.use_kernel and messages.dim() == 2:
-        return seg_ops.segment_sum(
-            messages, seg_ids, num_segments=num_segments).to(messages.dtype)
+        return scatter_rows(messages, seg_ids, num_segments,
+                            _segment_sum_kernel)
     return _scatter_sum(messages, seg_ids, num_segments)
 
 
-def segment_max(scores: torch.Tensor, dst: torch.Tensor,
-                n_nodes: int) -> torch.Tensor:
-    """``jax.ops.segment_max``: empty segments keep -inf."""
+def _segment_max_local(scores: torch.Tensor, dst: torch.Tensor,
+                       n_nodes: int) -> torch.Tensor:
     idx = dst.long().reshape((-1,) + (1,) * (scores.dim() - 1))
     out = torch.full((n_nodes,) + tuple(scores.shape[1:]), -torch.inf,
                      dtype=scores.dtype, device=scores.device)
@@ -84,14 +105,22 @@ def segment_max(scores: torch.Tensor, dst: torch.Tensor,
                               include_self=False)
 
 
+def segment_max(scores: torch.Tensor, dst: torch.Tensor,
+                n_nodes: int) -> torch.Tensor:
+    """``jax.ops.segment_max``: empty segments keep -inf."""
+    return scatter_rows(scores, dst, n_nodes, _segment_max_local, "max")
+
+
 def segment_softmax(scores: torch.Tensor, dst: torch.Tensor,
                     n_nodes: int) -> torch.Tensor:
     """Edge softmax: normalize scores [E, ...] over edges sharing a dst."""
     dst = dst.long()
     smax = segment_max(scores, dst, n_nodes)
-    ex = torch.exp(scores - smax[dst])
+    (smax_e,) = gather_rows(smax, dst)
+    ex = torch.exp(scores - smax_e)
     denom = _scatter_sum(ex, dst, n_nodes)
-    return ex / torch.clamp(denom[dst], min=1e-16)
+    (denom_e,) = gather_rows(denom, dst)
+    return ex / torch.clamp(denom_e, min=1e-16)
 
 
 def _mlp_spec(dims):
@@ -120,9 +149,12 @@ def _gat_layer(p, h, src, dst, n_nodes, n_heads, cfg, concat=True):
     hw = (h @ p.w).reshape(n_nodes, n_heads, -1)          # [N, H, D]
     s_src = torch.einsum("nhd,hd->nh", hw, p.a_src)       # [N, H]
     s_dst = torch.einsum("nhd,hd->nh", hw, p.a_dst)
-    scores = F.leaky_relu(s_src[src] + s_dst[dst], 0.2)   # [E, H]
+    (s_src_e,) = gather_rows(s_src, src)
+    (s_dst_e,) = gather_rows(s_dst, dst)
+    scores = F.leaky_relu(s_src_e + s_dst_e, 0.2)         # [E, H]
     alpha = segment_softmax(scores, dst, n_nodes)
-    msg = hw[src] * alpha[..., None]                      # [E, H, D]
+    (hw_src,) = gather_rows(hw, src)
+    msg = hw_src * alpha[..., None]                       # [E, H, D]
     msg = constrain(msg, "batch", None, None)
     d_head = hw.shape[-1]
     out = _segment_sum(cfg, msg.reshape(e, n_heads * d_head), dst, n_nodes)
@@ -133,7 +165,8 @@ def _gat_layer(p, h, src, dst, n_nodes, n_heads, cfg, concat=True):
 # -------------------------------------------------------------------- GIN ---
 
 def _gin_layer(p, h, src, dst, n_nodes, cfg, learnable_eps=True):
-    msg = constrain(h[src], "batch", None)
+    (h_src,) = gather_rows(h, src)
+    msg = constrain(h_src, "batch", None)
     agg = _segment_sum(cfg, msg, dst, n_nodes)
     eps = p.eps if learnable_eps else 0.0
     out = _mlp(p.mlp, (1.0 + eps) * h + agg)
@@ -144,9 +177,10 @@ def _gin_layer(p, h, src, dst, n_nodes, cfg, learnable_eps=True):
 
 def _gatedgcn_layer(p, h, e, src, dst, n_nodes, cfg):
     """Bresson & Laurent gated graph conv with edge-feature recurrence."""
-    e_new = h[src] @ p.A + h[dst] @ p.B + e @ p.C          # [E, D]
+    h_src, h_dst = gather_rows(h, src, dst)
+    e_new = h_src @ p.A + h_dst @ p.B + e @ p.C            # [E, D]
     gate = torch.sigmoid(e_new)
-    msg = constrain(gate * (h[src] @ p.V), "batch", None)
+    msg = constrain(gate * (h_src @ p.V), "batch", None)
     num = _segment_sum(cfg, msg, dst, n_nodes)
     den = _segment_sum(cfg, gate, dst, n_nodes)
     h_new = h @ p.U + num / (den + 1e-6)
@@ -159,7 +193,8 @@ def _gatedgcn_layer(p, h, e, src, dst, n_nodes, cfg):
 
 def _interaction_layer(p, h, e, src, dst, n_nodes, cfg):
     """GraphCast/MeshGraphNet InteractionNetwork with residuals."""
-    e = e + _mlp(p.edge_mlp, torch.cat([e, h[src], h[dst]], dim=-1))
+    h_src, h_dst = gather_rows(h, src, dst)
+    e = e + _mlp(p.edge_mlp, torch.cat([e, h_src, h_dst], dim=-1))
     agg = _segment_sum(cfg, constrain(e, "batch", None), dst, n_nodes)
     h_new = _mlp(p.node_mlp, torch.cat([h, agg], dim=-1))
     return h + h_new, e
@@ -276,8 +311,7 @@ def forward(params: GNN, cfg: GNNConfig,
         return h @ params.head
     if cfg.kind == "gatedgcn":
         h = h @ params.w_in
-        e = torch.zeros((src.shape[0], cfg.d_hidden), dtype=h.dtype,
-                        device=h.device)
+        e = full_rows(src, (cfg.d_hidden,), 0.0, h.dtype)
         for lp in params.layers:
             def blk(h, e, lp=lp):
                 return _gatedgcn_layer(lp, h, e, src, dst, n, cfg)
@@ -288,9 +322,7 @@ def forward(params: GNN, cfg: GNNConfig,
         return h @ params.head
     if cfg.kind == "graphcast":
         h = _mlp(params.w_in, h)
-        e = _mlp(params.w_edge_in,
-                 torch.ones((src.shape[0], 1), dtype=h.dtype,
-                            device=h.device))
+        e = _mlp(params.w_edge_in, full_rows(src, (1,), 1.0, h.dtype))
         for lp in params.layers:
             def blk(h, e, lp=lp):
                 return _interaction_layer(lp, h, e, src, dst, n, cfg)
@@ -338,8 +370,8 @@ def make_loss_fn(cfg: GNNConfig, task: str, seed_count: int = 0):
         if task == "regress":
             err = (out - batch["targets"]).float()
             loss = torch.mean(torch.square(err))
-            return loss, dict(loss=loss,
-                              acc=torch.zeros((), device=loss.device))
+            return loss, dict(loss=loss, acc=like(
+                torch.zeros((), device=loss.device), loss))
         raise ValueError(task)
     return loss_fn
 

@@ -15,7 +15,18 @@ against ``repro.launch``'s, for the LM and D4M families.
   argument bytes are the local shapes' bytes (``sharding.local_shape`` of
   every parameter's spec, the two float32 moments, the count and the
   batch).  The D4M ingest cell makes no collective; the query cell makes
-  one all-reduce of the 32-bin int32 histogram.  A GNN cell is refused.
+  one all-reduce of the 32-bin int32 histogram.
+* ``meta`` of every GNN cell (4 archs x 4 shapes) and of DCN-v2's four
+  (``serve_bulk`` on the kernel route, ``use_kernel=1``) equals the
+  reference's ``lower_cell`` on a ``(1, 1)`` JAX mesh; the ``hier``
+  variant raises the reference's ``ValueError`` in both packages.
+* Under the fake group of 4, on a ``(2, 2)`` mesh, each GNN kind's train
+  cell and DCN-v2's train, serve and retrieval cells at smoke widths
+  (DCN-v2's table given the six largest fields of the full config): the
+  argument bytes are the specs' local shapes' bytes, every train cell
+  makes collectives, and the vocab-parallel lookup gathers no more than a
+  tenth of one rank's block of the table (its all-gathers are the ids and
+  the batch-sized activations).
 * ``dryrun.run_cell`` on the (16, 16) production mesh (a fake group of
   256, in a child process, on the CPU with the probes' check) writes the
   reference's keys for the D4M ``ingest_small`` cell and a ``long_500k``
@@ -35,7 +46,7 @@ import pytest
 import torch_parity as tp
 from repro.configs import get_config as jget_config
 from repro.launch import cells as jcells
-from repro_torch.configs import get_config
+from repro_torch.configs import GNN_SHAPES, get_config, list_archs
 from repro_torch.launch import cells, diagnose
 from repro_torch.roofline import HW_H100
 
@@ -101,19 +112,44 @@ def test_small_helpers_equal_the_reference():
                 jcells._kv_read_flops(jget_config(arch), b, s)
 
 
+# the 16 GNN and 4 recsys cells, serve_bulk on the kernel route
+GNN_RECSYS_CELLS = [(a, s, "baseline") for a in list_archs("gnn")
+                    for s in sorted(GNN_SHAPES)] + [
+    ("dcn-v2", "train_batch", "baseline"), ("dcn-v2", "serve_p99", "baseline"),
+    ("dcn-v2", "serve_bulk", "use_kernel=1"),
+    ("dcn-v2", "retrieval_cand", "baseline")]
+
+
 @pytest.fixture(scope="module")
 def port_metas():
-    return tp.run_child("dryrun_metas", META_CELLS)
+    return tp.run_child("dryrun_metas", META_CELLS + GNN_RECSYS_CELLS)
 
 
-@pytest.mark.parametrize("arch,shape", META_CELLS)
-def test_meta_equals_the_reference(port_metas, arch, shape):
+def _jax_meta(arch, shape, variant="baseline"):
     from jax.sharding import Mesh
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
                 ("data", "model"))
     with mesh:
-        _, want = jcells.lower_cell(arch, shape, mesh)
-    assert port_metas[f"{arch}:{shape}"] == want
+        return jcells.lower_cell(arch, shape, mesh, variant)[1]
+
+
+@pytest.mark.parametrize("arch,shape", META_CELLS)
+def test_meta_equals_the_reference(port_metas, arch, shape):
+    assert port_metas[f"{arch}:{shape}"] == _jax_meta(arch, shape)
+
+
+@pytest.mark.parametrize("arch,shape,variant", GNN_RECSYS_CELLS)
+def test_gnn_recsys_meta_equals_the_reference(port_metas, arch, shape,
+                                              variant):
+    assert port_metas[f"{arch}:{shape}:{variant}"] == \
+        _jax_meta(arch, shape, variant)
+
+
+def test_hier_variant_is_refused_in_both(train_cells):
+    with pytest.raises(ValueError) as want:
+        _jax_meta("dcn-v2", "train_batch", "hier")
+    assert train_cells["hier"] == str(want.value)
+    assert "not enough values to unpack" in train_cells["hier"]
 
 
 @pytest.fixture(scope="module")
@@ -157,9 +193,23 @@ def test_d4m_cells_collectives(train_cells):
     assert ingest["arg_bytes"] > 0
 
 
-def test_gnn_and_recsys_cells_are_refused(train_cells):
-    assert "ROADMAP queue 1" in train_cells["gnn_refused"]
-    assert "gat-cora" in train_cells["gnn_refused"]
+@pytest.mark.parametrize("arch,shape", tp.GNN_CELLS + tp.RECSYS_CELLS)
+def test_gnn_recsys_cell_argument_bytes_are_the_local_shapes(
+        train_cells, arch, shape):
+    row = train_cells["gnn"][f"{arch}:{shape}"]
+    assert row["arg_bytes"] == row["expected"]["args"]
+    assert row["cost"]["flops"] > 0 and row["peak_bytes"] > 0
+    if row["meta"]["kind"] in ("full", "sampled", "batched", "train"):
+        assert sum(v["bytes"] for v in row["collectives"].values()) > 0
+
+
+@pytest.mark.parametrize("shape", [s for _, s in tp.RECSYS_CELLS])
+def test_recsys_lookup_gathers_no_table(train_cells, shape):
+    row = train_cells["gnn"][f"dcn-v2:{shape}"]
+    block = row["expected"]["table"]
+    assert block > 10 * 2**20              # one rank's rows: tens of MiB
+    gathered = row["collectives"]["all-gather"]["bytes"]
+    assert 0 < 10 * gathered < block
 
 
 @pytest.fixture(scope="module")

@@ -310,7 +310,9 @@ def test_sharding_phase_on_cpu(tmp_path):
     restored under ``Shard(0)`` on P = 2 and 4 ranks, grown to 16, the 4
     remaining rounds ingested: the blocks joined equal one process's
     restore -> resize -> rounds; (b) phi3-mini's smoke step on a (2, 2)
-    CPU mesh equal to the unsharded step; (c) both production meshes
+    CPU mesh equal to the unsharded step; (d) the four GNN kinds' and
+    DCN-v2's smoke steps on a (2, 2) gloo mesh equal to the unsharded
+    steps, DCN-v2's serving and retrieval too; (c) both production meshes
     under a fake group, shapes only."""
     import os
     from repro_torch.launch import ingest
@@ -334,6 +336,18 @@ def test_sharding_phase_on_cpu(tmp_path):
     assert lm["mesh"] == [2, 2] and lm["backend"] == "gloo"
     assert abs(lm["loss"] - lm["unsharded_loss"]) < chip_smoke.MESH_LOSS_TOL
     assert lm["param_excess"] <= chip_smoke.MESH_LR / 10
+    models = {r["arch"]: r for r in res["models"]}
+    assert sorted(models) == sorted(a for a, _ in chip_smoke.MODEL_MESH_JOBS)
+    for r in res["models"]:
+        assert len(r["losses"]) == r["steps"] > 0
+        for a, b in zip(r["losses"], r["unsharded_losses"]):
+            assert abs(a - b) < chip_smoke.MESH_LOSS_TOL
+        assert r["param_excess"] <= r["lr"] / 10
+    dcn = models["dcn-v2"]
+    assert dcn["topk_equal"] and not dcn["ties"]
+    assert dcn["score_err"] <= chip_smoke.SCORE_RTOL
+    assert dcn["sharded_leaves"] >= 1                  # the table's rows
+    assert models["gat-cora"]["batch_local"]["edge_src"] == [100]
     assert [p["mesh"] for p in res["production"]] == [[16, 16], [2, 16, 16]]
     assert all(p["leaves"] > 100 for p in res["production"])
 
@@ -342,24 +356,33 @@ def test_dryrun_phase_on_cpu(tmp_path):
     """Phase 18 at smoke size on the CPU: (a) through ``cells.lower_cell``
     on a one-rank gloo group, the D4M ``ingest_small`` and ``query`` cells
     at ``d4m_stream.config()`` (the plain kernel versions) and smollm's
-    train step at its smoke widths, 4 x 32, each recorded and timed — the
-    roofline bound at the H100's rates held under the CPU's measured time;
-    (b) ``dryrun.run_cell`` in child processes on both production meshes
-    under a fake group: decode cells at smoke widths and a ``long_500k``
-    skip."""
+    train step at its smoke widths, 4 x 32, GraphCast's train step and
+    DCN-v2's ``serve_bulk`` on the kernel route (the plain version here;
+    its scores held against the gather route's) at smoke widths, each
+    recorded and timed — the roofline bound at the H100's rates held under
+    the CPU's measured time; (b) ``dryrun.run_cell`` in child processes
+    on both production meshes under a fake group: decode cells, DCN-v2's
+    ``train_batch`` and GraphCast's ``ogb_products`` at smoke widths and a
+    ``long_500k`` skip."""
     import torch_parity as tp
     lm = tp.smoke_variant("smollm-360m")
+    dcn = tp.smoke_variant("dcn-v2")
+    gc = tp.smoke_variant("graphcast")
     res = chip_smoke.dryrun_phase(
         torch, "cpu", "cpu", str(tmp_path),
         card_cells=(("d4m-stream", "ingest_small", "baseline"),
                     ("d4m-stream", "query", "baseline"),
-                    ("smollm-360m", "train_4k", lm)),
+                    ("smollm-360m", "train_4k", lm),
+                    ("graphcast", "full_graph_sm", gc),
+                    ("dcn-v2", "serve_bulk", dcn + ",use_kernel=1")),
         host_cells=(("single", "smollm-360m", "decode_32k", lm),
                     ("multi", "granite-moe-3b-a800m", "decode_32k",
                      tp.smoke_variant("granite-moe-3b-a800m")),
-                    ("single", "smollm-360m", "long_500k", "baseline")),
+                    ("single", "smollm-360m", "long_500k", "baseline"),
+                    ("single", "dcn-v2", "train_batch", dcn),
+                    ("single", "graphcast", "ogb_products", gc)),
         lm_cut=dict(batch=4, seq=32), reps=1, host_timeout=300)
-    ingest, query, train = res["card"]
+    ingest, query, train, graphcast, serve = res["card"]
     for r in res["card"]:
         assert 0 < r["bound_ms"] <= r["ms"] and r["fraction"] <= 1
         assert r["recorded_peak_bytes"] > 0 and r["argument_bytes"] > 0
@@ -370,8 +393,16 @@ def test_dryrun_phase_on_cpu(tmp_path):
     assert train["useful_fraction"] > 0
     # no matrix-class op in ingest: no useful fraction
     assert ingest["flops"] == 0 and ingest["useful_fraction"] is None
-    assert res["merge_multi"] == 0                     # plain versions
-    decode, granite, skip = res["host"]
+    assert res["merge_multi"] == res["embedding_bag"] == 0  # plain versions
+    # the padded Cora graph at smoke widths, on a one-rank mesh
+    assert graphcast["kind"] == "full" and graphcast["tokens"] == 4096
+    assert graphcast["flops"] > 0 and graphcast["useful_fraction"] > 0
+    assert serve["kind"] == "serve" and serve["tokens"] == 262_144
+    assert serve["plain_route_rel_err"] <= chip_smoke.SCORE_RTOL
+    decode, granite, skip, dcn_train, gc_products = res["host"]
+    for r in (dcn_train, gc_products):
+        assert r["status"] == "ok" and r["fits_hbm"] is True
+        assert r["collective_bytes_per_device"] > 0
     assert decode["status"] == granite["status"] == "ok"
     assert decode["collective_bytes_per_device"] > 0
     assert granite["mesh"] == "multi" and granite["fits_hbm"] is True

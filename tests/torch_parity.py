@@ -284,9 +284,120 @@ def run_mesh_jobs(fleet, jobs):
                 sharded=isinstance(grown.spills, DTensor),
                 state=thier.state_to_numpy(thier.map_state(
                     lambda x: x.to_local(), grown))))
+        elif kind == "gnn_steps":
+            out.append(_gnn_mesh_steps(inputs))
+        elif kind == "dcn":
+            out.append(_dcn_mesh_job(inputs))
         else:
             raise ValueError(f"unknown mesh job {kind!r}")
     return out
+
+
+def _shards_and_params(params, specs, mesh) -> tuple:
+    """Every leaf gathered (numpy, by path) and each leaf's (path, local
+    shape, spec's local shape)."""
+    from repro_torch.distribution import sharding as sh
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    spec_of = dict(sh.leaves_with_paths(specs))
+    shapes, full = [], {}
+    for path, p in sh.leaves_with_paths(params):
+        shapes.append((path, tuple(p.to_local().shape),
+                       sh.local_shape(tuple(p.shape), spec_of[path], sizes,
+                                      coord)))
+        full[path] = p.full_tensor().numpy()
+    return full, shapes
+
+
+def _placed_batch(batch: dict, mesh, policy) -> dict:
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch.cells import _bsh
+    return {k: sh.place(torch.from_numpy(v), _bsh(mesh, policy.batch_axes,
+                                                  torch.from_numpy(v)))
+            for k, v in batch.items()}
+
+
+def _gnn_mesh_steps(inputs: dict) -> dict:
+    """``inputs["steps"]`` ``gnn.make_train_step`` steps of
+    ``inputs["arch"]``'s smoke config on a (2, 2) CPU mesh under
+    ``make_policy(mesh, "dp")`` (the GNN cells' layout), from the numpy
+    parameter tree placed by ``gnn_param_specs``, the graph by the cells'
+    ``_bsh``; returns each step's loss, the parameters gathered, every
+    leaf's local and spec shape, the batch's local shapes and whether the
+    moments follow their parameters' placements."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import common
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    mesh = mesh_mod.make_test_mesh((2, 2), device="cpu")
+    policy = sh.make_policy(mesh, "dp")
+    cfg = get_smoke_config(inputs["arch"])
+    params = tgnn.params_from_numpy(inputs["tree"], cfg, device="cpu")
+    specs = sh.gnn_param_specs(params, cfg, policy)
+    params = common.with_leaves(params, common.tree_map(
+        sh.place, params, sh.to_shardings(specs, mesh)))
+    batch = _placed_batch(inputs["batch"], mesh, policy)
+    step = tgnn.make_train_step(cfg, AdamWConfig(lr=inputs["lr"]),
+                                inputs["task"], inputs["seed_count"])
+    opt, losses = adamw_init(params), []
+    with sh.use_policy(policy):
+        for _ in range(inputs["steps"]):
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"].full_tensor()))
+    full, shapes = _shards_and_params(params, specs, mesh)
+    return dict(losses=losses, params=full, shapes=shapes,
+                batch_local={k: tuple(v.to_local().shape)
+                             for k, v in batch.items()},
+                moments_placed=all(
+                    m.placements == p.placements for m, p in zip(
+                        common.tree_leaves(opt["m"]),
+                        common.tree_leaves(params))))
+
+
+def _dcn_mesh_job(inputs: dict) -> dict:
+    """DCN-v2's smoke config on a (2, 2) CPU mesh under ``make_policy(mesh,
+    "dp")``, the parameters placed by ``recsys_param_specs`` (the table's
+    rows over every axis): ``serve_scores`` of the batch, ``retrieval_topk``
+    of its first query against candidates sharded over every axis, then one
+    ``make_train_step`` step; returns the scores, the top-k, the loss, the
+    parameters gathered and every leaf's local and spec shape."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import common
+    from repro_torch.models import dcn as tdcn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    mesh = mesh_mod.make_test_mesh((2, 2), device="cpu")
+    policy = sh.make_policy(mesh, "dp")
+    cfg = get_smoke_config("dcn-v2")
+
+    def placed():
+        params = tdcn.params_from_numpy(inputs["tree"], cfg, device="cpu")
+        specs = sh.recsys_param_specs(params, cfg, policy)
+        return specs, common.with_leaves(params, common.tree_map(
+            sh.place, params, sh.to_shardings(specs, mesh)))
+
+    specs, params = placed()
+    batch = _placed_batch(inputs["batch"], mesh, policy)
+    query = {k: sh.place(torch.from_numpy(inputs["batch"][k][:1]),
+                         sh.Sharding(mesh, (sh.Replicate(),) * 2))
+             for k in ("dense", "sparse")}
+    cands = sh.place(torch.from_numpy(inputs["cands"]), sh.to_shardings(
+        sh.Spec(("data", "model"), None), mesh))
+    step = tdcn.make_train_step(cfg, AdamWConfig(lr=inputs["lr"]))
+    with sh.use_policy(policy):
+        scores = tdcn.serve_scores(params, batch, cfg).full_tensor()
+        values, indices = tdcn.retrieval_topk(params, query, cands, cfg,
+                                              k=inputs["k"])
+        params, _, metrics = step(params, adamw_init(params), batch)
+    full, shapes = _shards_and_params(params, specs, mesh)
+    return dict(scores=scores.numpy(),
+                values=values.full_tensor().numpy(),
+                indices=indices.full_tensor().numpy(),
+                loss=float(metrics["loss"].full_tensor()), params=full,
+                shapes=shapes)
 
 
 # --------------------------------------------------------------- dry runs ---
@@ -306,7 +417,8 @@ def smoke_variant(arch: str, **over) -> str:
     full = dataclasses.asdict(get_config(arch))
     smoke = dataclasses.asdict(get_smoke_config(arch))
     smoke.update(over)
-    return ",".join(f"{k}={v}" for k, v in smoke.items()
+    return ",".join(f"{k}={'+'.join(map(str, v)) if isinstance(v, tuple) else v}"
+                    for k, v in smoke.items()
                     if k != "family" and v != full[k])
 
 
@@ -419,10 +531,90 @@ def dryrun_recorder_checks() -> dict:
     return out
 
 
+# (arch, shape) of the GNN and recsys cells recorded on a (2, 2) mesh at
+# smoke widths; DCN-v2's smoke table given the six largest fields of the
+# full config, so that the table outweighs every batch-sized collective
+GNN_CELLS = (("gat-cora", "full_graph_sm"), ("gin-tu", "molecule"),
+             ("gatedgcn", "full_graph_sm"), ("graphcast", "minibatch_lg"))
+RECSYS_CELLS = (("dcn-v2", "train_batch"), ("dcn-v2", "serve_p99"),
+                ("dcn-v2", "retrieval_cand"))
+
+
+def recsys_smoke_variant() -> str:
+    from repro_torch.configs.registry import get_config
+    return smoke_variant("dcn-v2",
+                         table_sizes=get_config("dcn-v2").table_sizes[:6])
+
+
+def _local_bytes(shape, spec, sizes, itemsize: int) -> int:
+    import math
+
+    from repro_torch.distribution import sharding as sh
+    return math.prod(sh.local_shape(tuple(shape), spec, sizes)) * itemsize
+
+
+def _expected_cell_arg_bytes(arch: str, shape: str, variant: str,
+                             mesh) -> dict:
+    """A GNN or recsys cell's argument bytes on one rank by the specs'
+    local shapes (the parameters, for a train cell the two float32 moments
+    and the int32 count, then the batch: dim 0 over every axis where they
+    divide it, the retrieval query whole, its candidates over every axis),
+    and the table's bytes on one rank."""
+    import math
+
+    from repro_torch.configs import GNN_SHAPES, RECSYS_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import cells
+    from repro_torch.models import dcn, gnn
+    cfg = cells.apply_variant(get_config(arch), variant)
+    policy = sh.make_policy(mesh, "dp")
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    every = tuple(mesh.mesh_dim_names)
+    if arch == "dcn-v2":
+        info = RECSYS_SHAPES[shape]
+        params = dcn.init(0, cfg, device="meta")
+        specs = sh.recsys_param_specs(params, cfg, policy)
+        b = info["batch"]
+        batch = [((b, cfg.n_dense), 4), ((b, cfg.n_sparse), 4)]
+        if info["kind"] == "train":
+            batch.append(((b,), 4))
+        train = info["kind"] == "train"
+    else:
+        info = GNN_SHAPES[shape]
+        n_out = cfg.n_vars if cfg.kind == "graphcast" else info["n_classes"]
+        params = gnn.init(0, cfg, info["d_feat"], n_out, device="meta")
+        specs = sh.gnn_param_specs(params, cfg, policy)
+        graph, _ = cells._gnn_batch(cfg, info, n_out, torch.device("meta"),
+                                    0)
+        batch = [(tuple(v.shape), v.element_size()) for v in graph.values()]
+        train = True
+    spec_of = dict(sh.leaves_with_paths(specs))
+    total, table = 0, 0
+    for path, p in sh.leaves_with_paths(params):
+        n = _local_bytes(p.shape, spec_of[path], sizes, p.element_size())
+        total += n + (2 * n // p.element_size() * 4 if train else 0)
+        if path == "table":
+            table = n
+    total += 4 if train else 0                      # the AdamW count
+    if arch == "dcn-v2" and info["kind"] == "retrieval":
+        nc = cells._pad256(info["n_candidates"])
+        total += sum(math.prod(s) * i for s, i in batch)   # the query whole
+        total += _local_bytes((nc, cfg.mlp[-1]), sh.Spec(every, None), sizes,
+                              4)
+    else:
+        for s, i in batch:
+            split = s[0] % math.prod(sizes.values()) == 0
+            spec = sh.Spec(every if split else None, *([None] * (len(s) - 1)))
+            total += _local_bytes(s, spec, sizes, i)
+    return dict(args=total, table=table)
+
+
 def dryrun_train_cells() -> dict:
     """Under a fake group of 4 ranks: the LM train cells of the five archs
     (smoke widths) on a (4, 1) data-only mesh against their unsharded
-    steps, the D4M cells on (2, 2), and GNN refused."""
+    steps, the D4M cells on (2, 2), the GNN and recsys cells at smoke
+    widths on (2, 2), and the ``hier`` variant refused."""
     from repro_torch.launch import cells, probes
     from repro_torch.launch import mesh as mesh_mod
     _fake_group(4)
@@ -442,10 +634,18 @@ def dryrun_train_cells() -> dict:
                                      device="cpu")
         out["d4m"][shape] = dict(_cost_row(low), meta=meta)
         out["d4m"][shape]["raw"] = probes.extract(low.compile())
+    out["gnn"] = {}
+    for arch, shape in GNN_CELLS + RECSYS_CELLS:
+        variant = recsys_smoke_variant() if arch == "dcn-v2" \
+            else smoke_variant(arch)
+        low, meta = cells.lower_cell(arch, shape, m22, variant)
+        out["gnn"][f"{arch}:{shape}"] = dict(
+            _cost_row(low), meta=meta,
+            expected=_expected_cell_arg_bytes(arch, shape, variant, m22))
     try:
-        cells.lower_cell("gat-cora", "full_graph_sm", m22)
-    except NotImplementedError as e:
-        out["gnn_refused"] = str(e)
+        cells.lower_cell("dcn-v2", "train_batch", m22, "hier")
+    except ValueError as e:
+        out["hier"] = str(e)
     return out
 
 
@@ -511,14 +711,16 @@ def dryrun_cells_run(outdir: str) -> dict:
 
 
 def dryrun_metas(cell_list) -> dict:
-    """``cells.lower_cell``'s ``meta`` of each (arch, shape) on a (1, 1)
-    mesh under a fake group of 1, lowered on ``meta`` (no recording)."""
+    """``cells.lower_cell``'s ``meta`` of each (arch, shape[, variant]) on
+    a (1, 1) mesh under a fake group of 1, lowered on ``meta`` (no
+    recording); keyed by the cell's fields joined with ``:``."""
     from repro_torch.launch import cells
     from repro_torch.launch import mesh as mesh_mod
     _fake_group(1)
     mesh = mesh_mod.make_test_mesh((1, 1), device="cpu")
-    return {f"{a}:{s}": cells.lower_cell(a, s, mesh, device="meta")[1]
-            for a, s in cell_list}
+    return {":".join(c): cells.lower_cell(*c[:2], mesh, *c[2:],
+                                          device="meta")[1]
+            for c in cell_list}
 
 
 def run_child(name: str, *args, timeout: int = 600):
