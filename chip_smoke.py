@@ -287,7 +287,7 @@ which the node-tiled kernel read.
    timed (median of 3 after a warm-up, each ended by a synchronize); the
    roofline bound at the dtype's peak (``roofline/terms.py``) must not
    exceed the measured time; the fraction, its dominant term, the useful
-   fraction (null for a cell with no matrix-class flop: the D4M ones),
+   fraction (every op's flops counted as XLA counts the reference's),
    the recorded peak beside ``max_memory_allocated``; (b) on
    the machine's CPU, one child process a cell, started before (a) and
    run beside it: ``dryrun.run_cell`` on the production meshes under a
@@ -299,11 +299,28 @@ which the node-tiled kernel read.
    every status ``ok`` or ``skip``, collective bytes above 0,
    ``fits_hbm`` printed.  Rehearse
    with ``tests/test_torch_chip_smoke.py::test_dryrun_phase_on_cpu``.
+19. the examples (``examples_phase``, run inside phase 18 after (a),
+   while (b)'s children still record on the host): the four modules of
+   ``repro_torch.examples`` at the reference's sizes, each in a spawned
+   process of its own (``start_example``; quickstart, recsys and
+   train_lm side by side, then stream_ingest alone, both of its runs in
+   its process), and quickstart also as the plain command ``python -m
+   repro_torch.examples.quickstart``:
+   quickstart's values on the card equal to the same functions' values
+   on the CPU; stream_ingest on the sort route and with ``use_kernel``
+   — counter, overflow, nnz per layer and instance, degree histogram and
+   tail exponent equal, the resumed counter an uninterrupted 6-round
+   run's, no process group left, ``merge_multi`` launched; recsys'
+   serving batch on the ``embedding_bag`` route within rtol 1e-6 of the
+   gather route, ``embedding_bag`` launched; train_lm's own checks (the
+   loss drops; the run with a failure injected at step 30 ends within
+   1e-4 of the clean one).  Rehearse with
+   ``tests/test_torch_chip_smoke.py::test_examples_phase_on_cpu``.
 
-It prints phase 13's to 18's numbers as one JSON line each
+It prints phase 13's to 19's numbers as one JSON line each
 (``{"serve": ...}``, ``{"train_lm": ...}``, ``{"stages": ...}``,
-``{"analysis": ...}``, ``{"sharding": ...}``, ``{"dryrun": ...}``), the
-card line, one JSON
+``{"analysis": ...}``, ``{"sharding": ...}``, ``{"dryrun": ...}``,
+``{"examples": ...}``), the card line, one JSON
 line with every kernel's numbers (the
 ``merge_multi`` row at the main path's shape 3072 + 16384, and under
 ``prev_shape`` at 4096 + 28672, the padded shape the main path passed when
@@ -316,9 +333,11 @@ warm-up's eager batch, then replays; a captured graph's launches are
 counted at each replay), ``phase9_replay_launches`` and
 ``phase15_launches_per_replay``, ``phase17_launches`` (phase 17
 (a)'s, summed over each P's ranks) and ``phase18_launches`` (phase 18
-(a)'s D4M cells: recorded, warm-up and timed calls); the
+(a)'s D4M cells: recorded, warm-up and timed calls) and
+``phase19_launches`` (stream_ingest's ``use_kernel`` run); the
 ``embedding_bag`` row's ``phase18_launches`` are phase 18 (a)'s
-``serve_bulk`` cell's.
+``serve_bulk`` cell's, its ``phase19_launches`` the recsys example's
+serving and retrieval.
 """
 from __future__ import annotations
 
@@ -4332,19 +4351,13 @@ def host_line(r: dict) -> str:
                  f"{rf['compute_s']:.4g} s memory {rf['memory_s']:.4g} s "
                  f"collective {rf['collective_s']:.4g} s "
                  f"({rf['dominant']}), useful "
-                 f"{_fraction(r['useful_fraction'])}")
+                 f"{r['useful_fraction']:.3f}")
     elif r["status"] == "skip":
         line += f" ({r['reason']})"
     else:
         line += f" ({r.get('error')})"
     return line + (f"; lower {r.get('lower_s')} s, recorded in "
                    f"{r.get('compile_s')} s, total {r.get('total_s')} s")
-
-
-def _fraction(x) -> str:
-    """A useful fraction as printed: null where no matrix-class flop was
-    recorded (a D4M cell), where the fraction says nothing."""
-    return "null" if x is None else f"{x:.3f}"
 
 
 def plain_route_err(torch, arch: str, variant: str, args, out,
@@ -4430,9 +4443,8 @@ def dryrun_card(torch, device, cells_, lm_cut: dict, reps: int, tmp: str,
                 dominant=terms.dominant, ms=ms,
                 ms_all=[t * 1e3 for t in times],
                 fraction=bound_ms / ms,
-                useful_fraction=(useful_fraction(meta["model_flops"],
-                                                 cost["flops"])
-                                 if cost["flops"] else None),
+                useful_fraction=useful_fraction(meta["model_flops"],
+                                                cost["flops"]),
                 recorded_peak_bytes=mem.temp_size_in_bytes,
                 argument_bytes=mem.argument_size_in_bytes,
                 max_memory_allocated=(torch.cuda.max_memory_allocated()
@@ -4462,7 +4474,7 @@ def dryrun_card(torch, device, cells_, lm_cut: dict, reps: int, tmp: str,
             print(f"(a) {arch} {shape} [{variant}]: {ms:.3f} ms (median of "
                   f"{reps}), bound {bound_ms:.4f} ms ({terms.dominant}), "
                   f"fraction {rec['fraction']:.4f}, useful "
-                  f"{_fraction(rec['useful_fraction'])}, "
+                  f"{rec['useful_fraction']:.3f}, "
                   f"flops {cost['flops']:.4g}"
                   f" bytes {cost['bytes accessed']:.4g} coll {coll}; "
                   f"recorded peak {mem.temp_size_in_bytes / 2**30:.3f} GiB,"
@@ -4480,20 +4492,29 @@ def dryrun_card(torch, device, cells_, lm_cut: dict, reps: int, tmp: str,
 def dryrun_phase(torch, device, card: str, tmp: str, *,
                  card_cells=DRYRUN_CARD_CELLS, host_cells=DRYRUN_HOST_CELLS,
                  lm_cut=DRYRUN_LM_CUT, reps: int = DRYRUN_REPS,
-                 host_timeout: float = DRYRUN_HOST_TIMEOUT) -> dict:
+                 host_timeout: float = DRYRUN_HOST_TIMEOUT,
+                 then=None) -> dict:
     """Phase 18: (b)'s children started first (they run on the host's
-    CPU while (a) runs on the card), then ``dryrun_card`` (a), then (b)'s
-    records joined: every cell ``ok`` or ``skip``, collective bytes above
-    0.  Returns the ``{"dryrun": ...}`` record; ``merge_multi`` and
+    CPU while (a) runs on the card), then ``dryrun_card`` (a), then
+    ``then()`` where given (``main`` runs phase 19 there, on the card
+    while (b) still records), then (b)'s records joined: every cell
+    ``ok`` or ``skip``, collective bytes above 0.  Returns the
+    ``{"dryrun": ...}`` record, ``then()``'s result under ``then`` and its
+    seconds left out of ``wall_s``; ``merge_multi`` and
     ``embedding_bag`` hold (a)'s launches."""
     from repro_torch.kernels import registry
     t0 = time.perf_counter()
     procs = start_host_cells(host_cells, tmp)
+    then_s, then_out = 0.0, None
     try:
         registry.reset_launches()
         card_recs = dryrun_card(torch, device, card_cells, lm_cut, reps,
                                 tmp, card)
         launches = registry.launches()
+        if then is not None:
+            t1 = time.perf_counter()
+            then_out = then()
+            then_s = time.perf_counter() - t1
     except BaseException:
         for _, p, _ in procs:
             p.terminate()
@@ -4507,7 +4528,248 @@ def dryrun_phase(torch, device, card: str, tmp: str, *,
                 host=[{k: r[k] for k in keep if k in r} for r in host],
                 merge_multi=launches["hier_merge.merge_multi"],
                 embedding_bag=launches["embedding_bag.embedding_bag"],
-                wall_s=time.perf_counter() - t0)
+                then=then_out, wall_s=time.perf_counter() - t0 - then_s)
+
+
+EXAMPLE_TIMEOUT = 600       # seconds a child process may take
+EXAMPLE_SCORE_RTOL = 1e-6   # recsys serving: kernel route == gather route
+
+
+def _ingest_run(mod, device: str, kw: dict) -> dict:
+    """One stream_ingest run for ``_example_run``: its main, its
+    launches, whether it left a process group, and the counter of an
+    uninterrupted run to the resumed round count."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import registry
+    from repro_torch.launch import ingest
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    out = mod.main(device, **kw)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = registry.launches()
+    out["group_left"] = dist.is_initialized()
+    a = mod.ingest_args(device=device, verbose=False, **{
+        k: v for k, v in kw.items()
+        if hasattr(mod.Args, k) or k == "use_kernel"})
+    rounds = kw.get("resume_rounds", 6)
+    a.blocks = max(a.blocks // a.rounds, 1) * rounds
+    a.rounds = rounds
+    out["uninterrupted_counter"] = ingest.run(a)["n_updates_counter"]
+    return out
+
+
+def _example_run(name: str, device: str, kw: dict) -> dict:
+    """One example's run for ``example_child``, with what its gates read:
+    quickstart's main on ``device`` and on the CPU; stream_ingest on the
+    sort route, then with ``use_kernel`` (``_ingest_run`` each); recsys'
+    main and its serving batch scored on the gather route too; train_lm's
+    main."""
+    import importlib
+
+    import torch
+
+    from repro_torch.kernels import registry
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    if name == "stream_ingest":
+        return {route: _ingest_run(mod, device, dict(kw, use_kernel=uk))
+                for route, uk in (("sort", False), ("kernel", True))}
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    if name == "quickstart":
+        out = dict(card=mod.main(device, **kw))
+        out["wall_s"] = time.perf_counter() - t0
+        out["cpu"] = mod.main("cpu", **kw)
+        return out
+    if name == "recsys_hier_embeddings":
+        from repro_torch.models import dcn
+        out, (params, batch, cfg) = mod.run_with_state(device, **kw)
+        out["launches"] = registry.launches()
+        gather = dcn.serve_scores(params, batch, dataclasses.replace(
+            cfg, use_kernel=False)).cpu()
+        scores = torch.tensor(out.pop("scores"))
+        out["scores_max_rel_err"] = float(
+            ((scores - gather).abs() / gather.abs()).max())
+    else:
+        out = mod.main(device, **kw)
+        out["launches"] = registry.launches()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def example_child(name: str, device: str, kw: dict, path: str) -> None:
+    """Phase 19's child process: ``_example_run``'s record as JSON in
+    ``path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    out = _example_run(name, device, kw)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def start_example(name: str, device: str, kw: dict, tmp: str):
+    """``example_child`` started in a spawned process of its own."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    fd, path = tempfile.mkstemp(prefix=f"{name}-", suffix=".json", dir=tmp)
+    os.close(fd)
+    proc = ctx.Process(target=example_child, args=(name, device, kw, path))
+    proc.start()
+    return name, proc, path, time.perf_counter()
+
+
+def join_examples(started) -> dict:
+    """The records of ``start_example``'s processes, each with its
+    process's wall seconds; a process that fails or outlives
+    ``EXAMPLE_TIMEOUT`` fails the phase once every one is joined or
+    stopped."""
+    out, bad = {}, []
+    try:
+        for name, proc, path, t0 in started:
+            proc.join(max(t0 + EXAMPLE_TIMEOUT - time.perf_counter(), 1.0))
+            if proc.is_alive():
+                bad.append(f"{name} still running after {EXAMPLE_TIMEOUT} s")
+            elif proc.exitcode != 0:
+                bad.append(f"{name} exited {proc.exitcode}")
+            else:
+                with open(path) as f:
+                    out[name] = json.load(f)
+                out[name]["process_s"] = time.perf_counter() - t0
+    finally:
+        for _, proc, _, _ in started:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    if bad:
+        raise AssertionError("phase 19: " + "; ".join(bad))
+    return out
+
+
+def quickstart_command(device: str) -> dict:
+    """``python -m repro_torch.examples.quickstart`` as a user types it
+    (``--device`` only off the card); its exit code 0 and its last line."""
+    cmd = [sys.executable, "-m", "repro_torch.examples.quickstart"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=EXAMPLE_TIMEOUT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if res.returncode != 0 or "monitor saw" not in res.stdout:
+        raise AssertionError(f"the quickstart command exited "
+                             f"{res.returncode}\n{res.stdout[-2000:]}\n"
+                             f"{res.stderr[-2000:]}")
+    return dict(process_s=time.perf_counter() - t0,
+                last_line=res.stdout.strip().splitlines()[-1])
+
+
+def examples_phase(torch, device, card: str, tmp: str, *,
+                   sizes=None) -> dict:
+    """Phase 19: the four examples (``repro_torch.examples``), each in a
+    fresh process at the reference's sizes (``sizes``: each example's
+    ``main`` keywords, for a rehearsal), and their gates.  Quickstart
+    (also as its plain command), recsys and train_lm run side by side;
+    then stream_ingest alone on the card (its rates are host-paced), the
+    sort route then ``use_kernel`` in one process.  The gates:
+    quickstart's values on ``device`` equal to the CPU's; stream_ingest's
+    two runs' counter, overflow, nnz per layer, histogram and tail
+    exponent equal, each resumed counter an uninterrupted run's, no
+    process group left, ``merge_multi`` launched (on the card); recsys'
+    serving batch on the ``embedding_bag`` route within rtol 1e-6 of the
+    gather route's, ``embedding_bag`` launched (on the card); train_lm's
+    own two checks.  Returns the ``{"examples": ...}`` record."""
+    sizes = sizes or {}
+    card_run = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    started = [start_example(name, device, dict(sizes.get(name, {}), **kw),
+                             tmp)
+               for name, kw in (("quickstart", {}),
+                                ("recsys_hier_embeddings",
+                                 dict(use_kernel=True)),
+                                ("train_lm", {}))]
+    try:
+        res = dict(quickstart_command=quickstart_command(str(device)))
+    finally:
+        got = join_examples(started)
+    qs, rx, lm = (got[name] for name in ("quickstart",
+                                         "recsys_hier_embeddings",
+                                         "train_lm"))
+
+    card_vals = {k: v for k, v in qs["card"].items() if k != "device"}
+    cpu_vals = {k: v for k, v in qs["cpu"].items() if k != "device"}
+    diff = sorted(k for k in card_vals if card_vals[k] != cpu_vals.get(k))
+    if diff:
+        raise AssertionError(f"phase 19: quickstart on {device} != on the "
+                             f"CPU in {diff}")
+    res["quickstart"] = dict(
+        wall_s=qs["wall_s"], process_s=qs["process_s"],
+        equal_to_cpu=sorted(card_vals),
+        **{k: card_vals[k] for k in ("nnz", "nnz_per_layer", "spills",
+                                     "unique_edges", "top_rows",
+                                     "active_rows", "monitor_records")})
+    print(f"quickstart: {device} == cpu in {len(card_vals)} values, "
+          f"{qs['wall_s']:.1f} s", flush=True)
+
+    if not rx["scores_max_rel_err"] <= EXAMPLE_SCORE_RTOL:
+        raise AssertionError(f"phase 19: recsys kernel-route scores differ "
+                             f"from the gather route's by "
+                             f"{rx['scores_max_rel_err']:.3g}")
+    embedding_bag = rx["launches"]["embedding_bag.embedding_bag"]
+    if card_run and embedding_bag == 0:
+        raise AssertionError("phase 19: recsys serving launched no "
+                             "embedding_bag")
+    res["recsys_hier_embeddings"] = {k: rx[k] for k in (
+        "use_kernel", "dense_loss", "hier_loss", "drains", "pending_nnz", "spills",
+        "best_score", "scores_max_rel_err", "dense_s", "hier_s", "wall_s",
+        "process_s")}
+    print(f"recsys: dense {rx['dense_loss']:.4f}, hier "
+          f"{rx['hier_loss']:.4f}, scores kernel vs gather "
+          f"{rx['scores_max_rel_err']:.3g}, {rx['wall_s']:.1f} s",
+          flush=True)
+
+    if not (lm["final_loss"] < lm["first_loss"]
+            and lm["final_loss_diff"] < 1e-4 and lm["failures"] == 1):
+        raise AssertionError(f"phase 19: train_lm's checks: {lm}")
+    res["train_lm"] = {k: lm[k] for k in lm if k not in ("launches",
+                                                         "device")}
+    print(f"train_lm: loss {lm['first_loss']:.4f} -> "
+          f"{lm['final_loss']:.4f}, recovered {lm['faulty_final_loss']:.4f} "
+          f"(|diff| {lm['final_loss_diff']:.3g}), {lm['wall_s']:.1f} s",
+          flush=True)
+
+    runs = join_examples([start_example(
+        "stream_ingest", device, sizes.get("stream_ingest", {}), tmp)])
+    runs = runs["stream_ingest"]
+    process_s = runs.pop("process_s")
+    for route, r in runs.items():
+        if r["group_left"]:
+            raise AssertionError("phase 19: stream_ingest left a process "
+                                 "group initialized")
+        if r["resumed_counter"] != r["uninterrupted_counter"]:
+            raise AssertionError(
+                f"phase 19: resumed counter {r['resumed_counter']} != an "
+                f"uninterrupted run's {r['uninterrupted_counter']}")
+        print(f"stream_ingest ({route} route): {r['updates_per_s']:.1f} "
+              f"updates/s, counter {r['counter']}, resumed "
+              f"{r['resumed_counter']}, {r['wall_s']:.1f} s", flush=True)
+    keys = ("counter", "overflow", "resumed_counter", "nnz_per_layer",
+            "histogram", "tail_exponent")
+    diff = [k for k in keys if runs["sort"][k] != runs["kernel"][k]]
+    if diff:
+        raise AssertionError(f"phase 19: stream_ingest kernel route != "
+                             f"sort route in {diff}")
+    merge_multi = runs["kernel"]["launches"][MM]
+    if card_run and merge_multi == 0:
+        raise AssertionError("phase 19: stream_ingest with use_kernel "
+                             "launched no merge_multi")
+    res["stream_ingest"] = {
+        route: {k: r[k] for k in keys + (
+            "updates_per_s", "resumed_updates_per_s", "frac_blocks_layer0",
+            "uninterrupted_counter", "wall_s")}
+        for route, r in runs.items()}
+    res["stream_ingest"]["process_s"] = process_s
+    res.update(merge_multi=merge_multi, embedding_bag=embedding_bag,
+               wall_s=time.perf_counter() - t0)
+    return res
 
 
 def main() -> int:
@@ -4853,14 +5115,30 @@ def main() -> int:
           "on the host under a fake group")
     gc.collect()
     torch.cuda.empty_cache()
+
+    def examples_on_the_card():
+        phase("19 the examples: quickstart (card == CPU, and as a "
+              "command), stream_ingest on the sort and kernel routes, "
+              "recsys serving on the embedding_bag route, train_lm with an "
+              "injected failure; phase 18 (b) records beside it")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = examples_phase(torch, "cuda", card, tmp)
+        print(f"phase 19 wall {out['wall_s']:.1f} s; {card}", flush=True)
+        return out
+
     with tempfile.TemporaryDirectory() as tmp:
-        dried = dryrun_phase(torch, "cuda", card, tmp)
+        dried = dryrun_phase(torch, "cuda", card, tmp,
+                             then=examples_on_the_card)
+    examples = dried.pop("then")
     if dried["merge_multi"] == 0:
         raise AssertionError("phase 18's D4M cells launched no merge_multi")
     if dried["embedding_bag"] == 0:
         raise AssertionError("phase 18's DCN-v2 serve_bulk cell launched no "
                              "embedding_bag")
-    print(f"phase 18 wall {dried['wall_s']:.1f} s; {card}", flush=True)
+    print(f"phase 18 wall {dried['wall_s']:.1f} s (phase 19 left out); "
+          f"{card}", flush=True)
     fleet_launches = {f"{r['backend']} P={r['ranks']}": r["merge_multi"]
                       for r in fleet["runs"]}
     fleet_launches.update({f"{s} gloo P=2": fleet[s]["merge_multi"]
@@ -4908,6 +5186,8 @@ def main() -> int:
         for r in sharded["fleet"]["runs"]}
     kernels[0]["phase18_launches"] = dried["merge_multi"]
     kernels[2]["phase18_launches"] = dried["embedding_bag"]
+    kernels[0]["phase19_launches"] = examples["merge_multi"]
+    kernels[2]["phase19_launches"] = examples["embedding_bag"]
     print(f"\nchip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": served, "card": card}))
     print(json.dumps({"train_lm": trained, "card": card}))
@@ -4916,6 +5196,7 @@ def main() -> int:
                                    if k != "report"}, "card": card}))
     print(json.dumps({"sharding": sharded, "card": card}))
     print(json.dumps({"dryrun": dried, "card": card}))
+    print(json.dumps({"examples": examples, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

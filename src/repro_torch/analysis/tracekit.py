@@ -65,13 +65,15 @@ J006  One (entry, signature) lowered under more than ``retrace_limit``
 **What the cost columns mean in the port** (per call, the mean over the
 recorded sequence):
 
-- ``flops``: each recorded op counted by the table
+- ``flops`` and ``transcendentals``: every recorded op counted as XLA's
+  ``HloCostAnalysis`` counts the reference's: the matrix-class ops (mm,
+  bmm, addmm, convolution, attention) by the table
   ``torch.utils.flop_counter.FlopCounterMode`` counts by
-  (``flop_registry``), which covers the matrix-class ops (mm, bmm, addmm,
-  convolution, attention) only: elementwise, norm, softmax, optimizer and
-  compare work counts 0, so the D4M entries report 0, where XLA counts
-  elementwise work too, and a roofline's compute term from this count is
-  low;
+  (``flop_registry``), every other op by ``op_cost``'s rules (elementwise
+  work one flop an element, exp / log / tanh / rsqrt ... one
+  transcendental an element, reductions, sorts, scatters; views, copies
+  and gathers none), so elementwise, compare, softmax and optimizer work
+  count, and the D4M entries' sorts, compares and bit ops too;
 - ``bytes_accessed``: for every op that moves data, the bytes of its
   tensor inputs read once plus its tensor outputs written once (views and
   allocations move none), plus, on the card, the bytes each CUDA kernel
@@ -80,12 +82,7 @@ recorded sequence):
 - ``peak_bytes``: on the CPU (and on ``meta``) the high-water mark of
   the bytes the call's ops allocate, tracked by the recorder (an output
   counts until its tensor is freed); on the card the rise of
-  ``torch.cuda.max_memory_allocated`` over the call.  (An earlier
-  recorder ran ``FlopCounterMode`` as a second mode, under which an op's
-  temporaries outlived their last use by some 20 ops: the committed
-  budgets' ``peak_bytes``, recorded then, stand 1.5-3.2 times above the
-  smoke fleet's peaks now, while its ``flops`` and ``bytes_accessed``
-  are the same.)
+  ``torch.cuda.max_memory_allocated`` over the call.
 
 **A sharded call is counted for one rank.**  An op on DTensors is not
 recorded as such (its shapes are global): the recorder lets DTensor's own
@@ -138,6 +135,7 @@ import functools
 import gc
 import hashlib
 import json
+import math
 import os
 import re
 import sys
@@ -226,7 +224,7 @@ class OpEvent:
 class Trace:
     """What one recorded call sequence did: every op, every host read
     (kind, site), every kernel launch a wrapper reported (name, bytes),
-    the matrix-class flops, and per call the peak bytes."""
+    the flops and transcendentals, and per call the peak bytes."""
     ops: List[OpEvent] = dataclasses.field(default_factory=list)
     host_reads: List[Tuple[str, str]] = dataclasses.field(
         default_factory=list)
@@ -234,6 +232,7 @@ class Trace:
     widenings: List[Tuple[str, str]] = dataclasses.field(
         default_factory=list)
     flops: int = 0
+    transcendentals: int = 0
     calls: int = 0
     peaks: List[int] = dataclasses.field(default_factory=list)
     arg_bytes: int = 0
@@ -248,6 +247,7 @@ class Trace:
     def per_call(self) -> dict:
         n = max(self.calls, 1)
         return dict(flops=self.flops / n,
+                    transcendentals=self.transcendentals / n,
                     bytes_accessed=self.bytes_accessed / n,
                     peak_bytes=max(self.peaks) if self.peaks else 0,
                     host_reads=len(self.host_reads) / n,
@@ -256,7 +256,9 @@ class Trace:
     def cost_dict(self) -> dict:
         """The reference's ``cost_analysis()`` keys, per call."""
         pc = self.per_call()
-        return {"flops": pc["flops"], "bytes accessed": pc["bytes_accessed"],
+        return {"flops": pc["flops"],
+                "transcendentals": pc["transcendentals"],
+                "bytes accessed": pc["bytes_accessed"],
                 "peak bytes": pc["peak_bytes"]}
 
     def as_text(self) -> str:
@@ -368,13 +370,178 @@ def _site(function: bool = False) -> str:
     return "?"
 
 
+# -------------------------------------------------------------- op costs ---
+#
+# The flops and transcendentals of one aten op outside
+# ``FlopCounterMode``'s table (``Recorder.on_op`` asks the table first),
+# by the rules XLA's ``HloCostAnalysis`` applies to the reference's ops,
+# as ``jax.jit(f).lower(...).compile().cost_analysis()`` gives them on the
+# JAX CPU backend.  Each rule reads shapes, dtypes and scalar arguments
+# only, so it counts the same on ``meta`` tensors and on a DTensor's local
+# ops.  N is the op's output elements unless a rule says otherwise.
+#
+# - elementwise arithmetic, compare, logical, bitwise, shift, select
+#   (``where``, ``masked_fill``), clamp, ``relu``, ``maximum`` /
+#   ``minimum``: N flops; a dtype conversion (``_to_copy`` or ``copy_``
+#   between dtypes) N, a copy within one dtype 0;
+# - transcendentals (exp, expm1, log, log1p, tanh, rsqrt, sqrt, erf, sin,
+#   cos): N under ``"transcendentals"`` and no flop; ``pow`` by an
+#   integral scalar is XLA's ``integer_pow``, its multiplies (x**2: N,
+#   x**3 and x**4: 2N), by anything else a transcendental;
+# - composites, per output element as XLA counts their expansion:
+#   ``_COMPOSITE`` (sigmoid 3 flops + 1 transcendental, silu 4 + 1, ...;
+#   a backward op as the reference's vjp less its forward); the row-wise
+#   softmax, log-softmax and logsumexp by formula over N inputs and R rows;
+# - reductions (sum, mean, amax, amin, prod, any, all, full max / min):
+#   input elements - output elements, and ``mean`` N more (its divide);
+#   ``var`` 4 x input elements; argmax / argmin and max / min along a dim
+#   (XLA's variadic value-index reduce) 9 x (input - output);
+# - sort, argsort and topk: n x ceil(log2 n) over the operand's n elements,
+#   whatever the sorted dimension ([4096] -> 49,152; [8, 1024] ->
+#   106,496).  XLA's CPU backend lowers an integer ``lax.top_k`` to that
+#   sort and a float one to a custom call it counts as -1 flop: the rule
+#   is the sort's for both;
+# - scatter-adds and scatter-reduces (``index_add``, ``scatter_add``,
+#   ``scatter_reduce``, ``index_put`` with ``accumulate``, ``bincount``):
+#   1 per update element;
+# - scans (cumsum, cumprod, cummax, cummin): N (one combine an element;
+#   XLA's CPU lowering is a reduce-window, [4096] -> 69,887);
+#   ``searchsorted``: Q x ceil(log2(n + 1)) compares for Q queries into n
+#   sorted entries (the reference's binary searches are ``while`` loops
+#   whose body XLA counts once);
+# - every other op 0: views, copies, gathers (``index``,
+#   ``index_select``, ``gather``), ``cat``, ``stack``, pads, fills,
+#   allocations, collectives.  A CUDA kernel's launch through
+#   ``kernels/registry.py`` dispatches no aten op and counts 0, as XLA
+#   counts the reference's ``pallas_call``s (no ``cost_estimate``).
+#
+# Where jnp decomposes one call into several HLO ops (a negative-index
+# clamp in front of every gather and scatter, the sign fixes of integer
+# floor division) the reference counts more than the port's one op.
+
+_ELEMENTWISE = frozenset((
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sign", "sgn",
+    "floor", "ceil", "round", "trunc", "frac", "remainder", "fmod",
+    "reciprocal", "square", "eq", "ne", "lt", "le", "gt", "ge",
+    "logical_and", "logical_or", "logical_xor", "logical_not",
+    "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
+    "__lshift__", "__rshift__", "bitwise_left_shift",
+    "bitwise_right_shift", "where", "masked_fill", "clamp", "clamp_min",
+    "clamp_max", "relu", "maximum", "minimum", "fmax", "fmin", "isnan",
+    "copysign"))
+_TRANSCENDENTAL = frozenset((
+    "exp", "expm1", "log", "log1p", "tanh", "rsqrt", "sqrt", "erf", "sin",
+    "cos"))
+# (flops, transcendentals) per output element
+_COMPOSITE = {
+    "sigmoid": (3, 1), "silu": (4, 1), "elu": (3, 1), "leaky_relu": (3, 0),
+    "threshold_backward": (1, 0), "sigmoid_backward": (3, 0),
+    "silu_backward": (5, 0), "elu_backward": (5, 0),
+    "leaky_relu_backward": (2, 0), "_softmax_backward_data": (5, 0),
+    "_log_softmax_backward_data": (1, 0)}
+_REDUCTIONS = frozenset(("sum", "nansum", "mean", "prod", "amax", "amin",
+                         "any", "all", "max", "min"))
+_VARIADIC_REDUCTIONS = frozenset(("argmax", "argmin"))
+_SORTS = frozenset(("sort", "argsort", "msort", "topk"))
+_SCANS = frozenset(("cumsum", "cumprod", "cummax", "cummin"))
+# scatter -> the position of the argument whose elements are the updates
+_SCATTERS = {"index_add": 3, "scatter_add": 2, "scatter_reduce": 2,
+             "bincount": 0}
+
+
+def _log2_ceil(n: int) -> int:
+    return max(int(n) - 1, 0).bit_length()
+
+
+def _integer_pow(exponent) -> Optional[int]:
+    """Multiplies per element of XLA's ``integer_pow`` (square and
+    multiply; a divide more for a negative exponent), or None when the
+    exponent is not an integral scalar."""
+    if isinstance(exponent, bool) or not isinstance(exponent, (int, float)) \
+            or not math.isfinite(exponent) or exponent != int(exponent):
+        return None
+    n = abs(int(exponent))
+    if n == 0:
+        return 0
+    return n.bit_length() + bin(n).count("1") - 2 + (exponent < 0)
+
+
+def _updates(name: str, args) -> int:
+    """Update elements of a scatter (``index_put``: the elements its
+    integer indices select)."""
+    if name in ("index_put", "_index_put_impl"):
+        import torch
+        idx = [i for i in args[1] if i is not None]
+        if any(i.dtype == torch.bool for i in idx):
+            return args[2].numel()
+        n = math.prod(torch.broadcast_shapes(*(i.shape for i in idx)))
+        return n * math.prod(args[0].shape[len(args[1]):])
+    return args[_SCATTERS[name]].numel()
+
+
+def op_cost(func, args, kwargs, ins, outs) -> Tuple[int, int]:
+    """``(flops, transcendentals)`` of one aten op outside
+    ``FlopCounterMode``'s table, by the rules above."""
+    name = func.overloadpacket.__name__
+    if name.endswith("_") and not name.endswith("__"):
+        name = name[:-1]                 # the in-place form counts the same
+    if not outs or not ins:
+        return 0, 0
+    n = outs[0].numel()
+    if name in _ELEMENTWISE:
+        return n, 0
+    if name in _TRANSCENDENTAL:
+        return 0, n
+    if name in _COMPOSITE:
+        f, t = _COMPOSITE[name]
+        return f * n, t * n
+    if name == "pow":
+        mults = _integer_pow(args[1]) \
+            if func._overloadname == "Tensor_Scalar" else None
+        return (0, n) if mults is None else (mults * n, 0)
+    if name in ("_to_copy", "copy"):
+        return (n, 0) if ins[-1].dtype != outs[0].dtype else (0, 0)
+    m = ins[0].numel()
+    if name in ("_softmax", "_log_softmax", "logsumexp"):
+        if name == "logsumexp":
+            rows = n
+        else:
+            size = ins[0].shape[args[1]] if ins[0].dim() else 1
+            rows = m // size if size else 0
+        if name == "_softmax":
+            return 2 * (m - rows) + 2 * m, m
+        if name == "_log_softmax":
+            return 2 * (m - rows) + 3 * m, m + rows
+        return 2 * (m - rows) + m + 4 * rows, m + rows
+    if name in ("max", "min") and func._overloadname == "other":
+        return n, 0                      # the binary max: elementwise
+    if name in _VARIADIC_REDUCTIONS or (
+            name in ("max", "min") and func._overloadname == "dim"):
+        return 9 * (m - n), 0
+    if name in _REDUCTIONS:
+        return m - n + (n if name == "mean" else 0), 0
+    if name == "var":
+        return 4 * m, 0
+    if name in _SORTS:
+        return m * _log2_ceil(m), 0
+    if name in _SCANS:
+        return n, 0
+    if name in _SCATTERS or (name in ("index_put", "_index_put_impl") and (
+            args[3] if len(args) > 3 else kwargs.get("accumulate", False))):
+        return _updates(name, args), 0
+    if name == "searchsorted":
+        return n * _log2_ceil(args[0].shape[-1] + 1), 0
+    return 0, 0
+
+
 class Recorder:
     """Records every aten op of the calls run inside ``active()``: a
     ``TorchDispatchMode`` for the ops, wrappers around ``Tensor.tolist`` /
     ``Tensor.numpy`` for the host reads that dispatch nothing, the kernel
     registry's bytes hook for the CUDA launches, ``FlopCounterMode``'s
-    table for flops, and the peak bytes per call.  ``paused()`` excludes harness
-    work (moving data, reading spills) from the record."""
+    table and ``op_cost`` for flops and transcendentals, and the peak bytes
+    per call.  ``paused()`` excludes harness work (moving data, reading
+    spills) from the record."""
 
     def __init__(self):
         self.trace = Trace()
@@ -418,9 +585,9 @@ class Recorder:
 
     def on_op(self, func, args, kwargs, out, ins, outs) -> None:
         """Record one op (``ins`` / ``outs``: the tensors of its arguments
-        and results) and count its flops from ``FlopCounterMode``'s table
-        of matrix-class ops (``mm``, ``bmm``, ``addmm``, convolutions,
-        attention, ...); an op outside the table counts none."""
+        and results) and count its flops: ``FlopCounterMode``'s table for
+        the matrix-class ops (``mm``, ``bmm``, ``addmm``, convolutions,
+        attention, ...), ``op_cost``'s rules for every other op."""
         import torch
         if self._paused:
             return
@@ -428,6 +595,10 @@ class Recorder:
         count = self._flop_table.get(func._overloadpacket)
         if count is not None:
             self.trace.flops += int(count(*args, **kwargs, out_val=out))
+        else:
+            flops, trans = op_cost(func, args, kwargs, ins, outs)
+            self.trace.flops += flops
+            self.trace.transcendentals += trans
         scalar_out = not outs and isinstance(out, (bool, int, float)) \
             and bool(ins)
         if (scalar_out or name == "_local_scalar_dense") \

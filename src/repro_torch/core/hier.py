@@ -80,6 +80,9 @@ class HierAssoc:
     def device(self) -> torch.device:
         return self.spills.device
 
+    def nnz_per_layer(self) -> Tensor:
+        return torch.stack([l.nnz for l in self.layers])
+
 
 def map_state(fn, *states: HierAssoc) -> HierAssoc:
     """Apply ``fn`` leaf-wise over one or more same-shaped states (the

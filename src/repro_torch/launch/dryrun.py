@@ -18,11 +18,11 @@ fraction and the fit come from the recording, which counts every layer,
 microbatch and update block.  ``--probes`` also runs the reference's
 layer or block probes (``launch/probes.py``) as a check of it and keeps
 their extrapolation under the reference's ``corrected`` / ``probes`` /
-``probe_s``; it replaces nothing.  ``flops`` counts matrix-class ops only
-(``analysis/tracekit.py``): a cell that records none (every D4M cell) has
-a ``useful_fraction`` of null.  A failing cell records ``status:
-"error"`` and makes the exit code 1; a documented skip records ``status:
-"skip"``.
+``probe_s``; it replaces nothing.  ``flops`` counts every op as XLA's
+cost analysis counts the reference's (``analysis/tracekit.py``), and the
+useful fraction is ``model_flops / (flops x n_devices)`` for every cell,
+as in the reference.  A failing cell records ``status: "error"`` and
+makes the exit code 1; a documented skip records ``status: "skip"``.
 
 The production meshes are ``launch/mesh.py``'s ``(16, 16)`` (``single``,
 256 ranks) and ``(2, 16, 16)`` (``multi``, 512 ranks), built in one
@@ -190,9 +190,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
         rec["roofline"] = terms.as_dict()
         model_flops = meta.get("model_flops", 0.0)
         rec["model_flops"] = float(model_flops)
-        # no matrix-class op recorded: no fraction to give
-        rec["useful_fraction"] = useful_fraction(
-            model_flops, flops_dev * n_dev) if flops_dev else None
+        rec["useful_fraction"] = useful_fraction(model_flops,
+                                                 flops_dev * n_dev)
         # per-device HBM residency
         arg_b = mem.get("argument_size_in_bytes", 0)
         tmp_b = mem.get("temp_size_in_bytes", 0)

@@ -204,7 +204,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--obs", action="store_true",
                     help="emit obs.jsonl observability events (per-round "
                     "fleet samples and spans, the run summary); aggregate "
-                    "with python -m repro.launch.monitor")
+                    "with python -m repro_torch.launch.monitor")
     ap.add_argument("--obs-dir", dest="obs_dir", default="",
                     help="observability output directory (default 'obs' "
                     "or REPRO_OBS_DIR)")

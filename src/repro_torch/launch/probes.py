@@ -20,8 +20,8 @@ collectives: the extrapolation equals the full recording exactly in
 ``flops``, ``bytes`` and ``coll`` (collective bytes;
 ``tests/test_torch_probes.py``).  Ingest is data-dependent — layer 0
 fills and spills only after some updates — so its extrapolation from the
-first two updates is not the whole stream's cost (``bytes`` under-counts;
-ingest has no matrix flops and no collective).  ``corrected`` is the
+first two updates is not the whole stream's cost (``flops`` and
+``bytes`` under-count; ingest has no collective).  ``corrected`` is the
 extrapolation; ``dryrun --probes`` keeps it beside the full recording
 (``raw``), from which the dry run's roofline always comes.
 """

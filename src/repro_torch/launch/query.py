@@ -152,7 +152,7 @@ def parser() -> argparse.ArgumentParser:
                     "(stages.precompile_fleet) before serving")
     ap.add_argument("--obs", action="store_true",
                     help="emit obs.jsonl events; aggregate with python -m "
-                    "repro.launch.monitor")
+                    "repro_torch.launch.monitor")
     ap.add_argument("--obs-dir", dest="obs_dir", default="",
                     help="observability output directory (default 'obs' "
                     "or REPRO_OBS_DIR)")

@@ -10,8 +10,8 @@ of ``repro.obs``, host-side apart from one device entry:
 - ``obs.slo``: rolling rates, latency SLOs with breach events, and a
   non-raising stall detector for serving loops.
 
-Aggregation: ``python -m repro.launch.monitor`` (stdlib only) reads what
-``obs.trace`` writes.
+Aggregation: ``python -m repro_torch.launch.monitor`` (torch-free at
+import) reads what ``obs.trace`` writes.
 """
 from repro_torch.obs import metrics, slo, trace                    # noqa: F401
 from repro_torch.obs.metrics import REGISTRY, Histogram, Registry  # noqa: F401

@@ -4,9 +4,9 @@ When tracing is enabled (``REPRO_OBS=1`` or ``obs.enable()``), ``emit``
 appends one JSON line per event to ``<obs_dir>/obs.jsonl``: the service
 summary, SLO breaches, stalls, fleet samples and metric snapshots.  The
 schema is the JAX package's, so the stdlib-only
-``python -m repro.launch.monitor --obs-dir <dir>`` aggregates the port's
-files unchanged (run it as a separate command; the port never imports
-it).
+``python -m repro_torch.launch.monitor --obs-dir <dir>`` (the port's copy
+of the reference's monitor) aggregates the port's files, and either
+package's monitor reads either package's files.
 
 - **Host-side only.**  Nothing here touches a tensor; the off-path cost
   is one module-global read per ``emit``.

@@ -61,7 +61,8 @@ run adds no compile.
 compiled module to read, so a ``Compiled`` answers from a RECORDED call
 (``analysis/tracekit.py``: every aten op with its dtypes and shapes, the
 host reads, the kernel launches a wrapper reported):
-``Compiled.cost_analysis()`` (``"flops"``, ``"bytes accessed"``, per
+``Compiled.cost_analysis()`` (``"flops"`` and ``"transcendentals"`` as
+XLA's cost analysis counts the reference's ops, ``"bytes accessed"``, per
 call), ``as_text()`` (one aten op a line; for a ``"graph"`` entry also the
 kernels a replay launches) and ``memory_analysis()`` (the reference's
 attribute names; ``generated_code_size_in_bytes`` is the size of the
@@ -671,11 +672,13 @@ class Compiled:
         return self.recorded
 
     def cost_analysis(self) -> dict:
-        """The recorded call's cost under the reference's keys:
-        ``"flops"`` (matrix-class ops, ``FlopCounterMode``), ``"bytes
-        accessed"`` (each op's tensor inputs read and outputs written
-        once, plus the bytes the kernel wrappers report) and ``"peak
-        bytes"``, per call."""
+        """The recorded call's cost under the reference's keys, per call:
+        ``"flops"`` and ``"transcendentals"`` (every op, counted as XLA's
+        ``HloCostAnalysis`` counts the reference's: ``FlopCounterMode``'s
+        table for the matrix-class ops, ``tracekit.op_cost`` for the
+        rest; a CUDA kernel's launch 0), ``"bytes accessed"`` (each op's
+        tensor inputs read and outputs written once, plus the bytes the
+        kernel wrappers report) and ``"peak bytes"``."""
         return self._trace().cost_dict()
 
     def as_text(self) -> str:

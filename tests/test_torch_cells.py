@@ -9,8 +9,8 @@ against ``repro.launch``'s, for the LM and D4M families.
   child process under a fake group of 1.
 * Under a fake group of 4 (a child process): each LM arch's train cell at
   its smoke widths (batch 8 x 32) on a ``(4, 1)`` data-only mesh.  For the
-  dense archs the per-device flops are exactly a quarter of the unsharded
-  step's; the MoE archs route every token on each rank (``moe.py``'s
+  dense archs the per-device flops of the matrix products are exactly a
+  quarter of the unsharded step's; the MoE archs route every token on each rank (``moe.py``'s
   ``replicate(xt)``), so theirs are more — the ratio found is held.  The
   argument bytes are the local shapes' bytes (``sharding.local_shape`` of
   every parameter's spec, the two float32 moments, the count and the
@@ -31,8 +31,9 @@ against ``repro.launch``'s, for the LM and D4M families.
   256, in a child process, on the CPU with the probes' check) writes the
   reference's keys for the D4M ``ingest_small`` cell and a ``long_500k``
   skip; the roofline's memory term is the recorded bytes over
-  ``HW_H100["hbm_bw"]``, and with no recorded flops the useful fraction
-  is null.
+  ``HW_H100["hbm_bw"]``, and the recorded flops (its sorts, compares and
+  bit ops, counted as XLA counts the reference's) give a numeric useful
+  fraction.
 * ``diagnose.analyze`` on recorded text.
 """
 import dataclasses
@@ -62,7 +63,7 @@ OK_KEYS = {"arch", "shape", "mesh", "variant", "n_devices", "status",
            "model_flops", "useful_fraction", "fits_hbm", "total_s"}
 SKIP_KEYS = {"arch", "shape", "mesh", "variant", "n_devices", "status",
              "reason", "total_s"}
-# per-device / unsharded flops of the MoE archs' smoke train cells on a
+# per-device / unsharded matrix flops of the MoE archs' smoke train cells on a
 # (4, 1) mesh: every rank routes all 256 tokens and runs every expert's
 # capacity, where the dense layers see a quarter of the batch
 MOE_RATIO = {"granite-moe-3b-a800m": 42123264 / 104792064,
@@ -159,15 +160,18 @@ def train_cells():
 
 @pytest.mark.parametrize("arch", tp.DENSE_ARCHS)
 def test_dense_train_cell_flops_are_a_quarter(train_cells, arch):
+    """The matrix products' flops exactly; the whole count, elementwise
+    work too, is above them (every rank also repeats its replicated
+    leaves' updates, so it is not a quarter exactly)."""
     row = train_cells["train41"][arch]
-    assert row["cost"]["flops"] > 0
-    assert 4 * row["cost"]["flops"] == row["unsharded"]["flops"]
+    assert row["cost"]["flops"] > row["matrix_flops"] > 0
+    assert 4 * row["matrix_flops"] == row["unsharded"]["matrix_flops"]
 
 
 @pytest.mark.parametrize("arch", tp.MOE_ARCHS)
 def test_moe_train_cell_flops_ratio(train_cells, arch):
     row = train_cells["train41"][arch]
-    ratio = row["cost"]["flops"] / row["unsharded"]["flops"]
+    ratio = row["matrix_flops"] / row["unsharded"]["matrix_flops"]
     assert ratio == MOE_RATIO[arch]
     assert 0.25 < ratio < 0.5
 
@@ -184,13 +188,45 @@ def test_d4m_cells_collectives(train_cells):
     ingest, query = (train_cells["d4m"][s] for s in ("ingest_small",
                                                      "query"))
     assert ingest["collectives"] == {} and ingest["raw"]["coll"] == 0
-    assert ingest["raw"]["bytes"] > 0 and ingest["raw"]["flops"] == 0
+    assert ingest["raw"]["bytes"] > 0 and ingest["raw"]["flops"] > 0
     assert query["collectives"] == {"all-reduce": dict(bytes=32 * 4,
                                                        count=1)}
     # a (2, 2) mesh: 4 ranks of 4 instances each, one rank recorded
     assert ingest["meta"]["n_instances"] == 16
     assert ingest["meta"]["updates"] == 16 * 8 * 1024
     assert ingest["arg_bytes"] > 0
+
+
+def test_d4m_ingest_cell_has_flops_and_a_useful_fraction_in_both(
+        train_cells):
+    """The ``ingest_small`` cell: one rank's 4 instances of the (2, 2)
+    mesh in the port, the 4 instances of a (1, 1) JAX mesh in the
+    reference — the same per-device work.  Both count flops and give a
+    useful fraction; their ratio is printed, not held: the port records
+    every block of the stream where XLA counts the reference's ``scan``
+    body once, and jnp's indexing adds clamp arithmetic the port does
+    not do."""
+    from jax.sharding import Mesh
+
+    from repro.roofline.terms import useful_fraction as jfraction
+    from repro_torch.roofline.terms import useful_fraction
+    row = train_cells["d4m"]["ingest_small"]
+    flops, meta = row["cost"]["flops"], row["meta"]
+    fraction = useful_fraction(meta["model_flops"], flops * 4)
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                ("data", "model"))
+    with mesh:
+        low, jmeta = jcells.lower_cell("d4m-stream", "ingest_small", mesh)
+        jcost = low.compile().cost_analysis()
+    jcost = jcost[0] if isinstance(jcost, list) else jcost
+    jflops = jcost["flops"]
+    jfrac = jfraction(jmeta["model_flops"], jflops)
+    assert flops > 0 and jflops > 0
+    assert 0 < fraction < float("inf") and 0 < jfrac < float("inf")
+    assert jmeta["model_flops"] * 4 == meta["model_flops"]
+    print(f"ingest_small flops a device: port {flops:.0f}, reference "
+          f"{jflops:.0f}, ratio {flops / jflops:.4f}; useful fraction "
+          f"port {fraction:.4f}, reference {jfrac:.4f}")
 
 
 @pytest.mark.parametrize("arch,shape", tp.GNN_CELLS + tp.RECSYS_CELLS)
@@ -234,7 +270,7 @@ def test_run_cell_writes_the_reference_keys(dryrun_records):
     # the roofline is the recording's; the probes' extrapolation is a check
     assert ok["roofline"]["memory_s"] == ok["raw"]["bytes"] / HW_H100["hbm_bw"]
     assert 0 < ok["corrected"]["bytes"] < ok["raw"]["bytes"]
-    assert ok["raw"]["flops"] == 0 and ok["useful_fraction"] is None
+    assert ok["raw"]["flops"] > 0 and ok["useful_fraction"] > 0
     assert ok["collective_bytes_per_device"] == 0
     assert set(ok["probes"]) == {"ingest_T1", "ingest_T2"}
     assert ok["meta"]["n_instances"] == 1024 and ok["fits_hbm"] is True

@@ -19,9 +19,6 @@ streams are integer-valued.
 import json
 import os
 import shutil
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +41,6 @@ from repro_torch.obs import trace as ttrace
 
 import torch_parity as tp
 
-ROOT = Path(__file__).resolve().parents[1]
 CUTS = (16, 64, 256)
 BLOCK = 8
 I = 3
@@ -345,7 +341,8 @@ def test_ingest_obs_events_read_by_the_reference_monitor(tmp_path):
     """``--obs`` writes the fleet sample before the stream and after every
     round, one ``ingest_round`` span per round, the metrics snapshot and
     the run summary; the reference's stdlib-only monitor, as its own
-    command, aggregates them into the run's update total and rate."""
+    command, aggregates them into the run's update total and rate, and
+    the port's monitor into the same summary."""
     d = str(tmp_path / "obs")
     try:
         out = tingest.run(_cli(tmp_path, "--obs", "--obs-dir", d))
@@ -355,15 +352,8 @@ def test_ingest_obs_events_read_by_the_reference_monitor(tmp_path):
         evs = [json.loads(line)["ev"] for line in f]
     assert evs.count("fleet") == 9 and evs.count("ingest_round") == 8
     assert evs[-2:] == ["metrics", "run_summary"]
-    summary_path = tmp_path / "summary.json"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-m", "repro.launch.monitor",
-                          "--once", "--strict", "--obs-dir", d,
-                          "--summary-out", str(summary_path)],
-                         env=env, cwd=tmp_path, capture_output=True,
-                         text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    summary = json.loads(summary_path.read_text())
+    summary, port_summary = tp.monitor_summaries(d, tmp_path)
+    assert port_summary == summary
     assert summary["malformed_records"] == 0
     assert summary["events"]["run_summary"] == 1
     assert summary["fleet"]["updates_total"] == out["total_updates"]

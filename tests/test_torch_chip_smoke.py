@@ -391,8 +391,8 @@ def test_dryrun_phase_on_cpu(tmp_path):
     assert query["collectives"] == {"all-reduce": 32 * 4}
     assert train["flops"] > 0 and train["tokens"] == 4 * 32
     assert train["useful_fraction"] > 0
-    # no matrix-class op in ingest: no useful fraction
-    assert ingest["flops"] == 0 and ingest["useful_fraction"] is None
+    # ingest's sorts, compares and bit ops count: a useful fraction
+    assert ingest["flops"] > 0 and ingest["useful_fraction"] > 0
     assert res["merge_multi"] == res["embedding_bag"] == 0  # plain versions
     # the padded Cora graph at smoke widths, on a one-rank mesh
     assert graphcast["kind"] == "full" and graphcast["tokens"] == 4096
@@ -407,3 +407,36 @@ def test_dryrun_phase_on_cpu(tmp_path):
     assert decode["collective_bytes_per_device"] > 0
     assert granite["mesh"] == "multi" and granite["fits_hbm"] is True
     assert skip["status"] == "skip"
+
+
+EXAMPLE_SIZES = dict(
+    stream_ingest=dict(instances=2, blocks=8, block_size=64, rounds=4,
+                       cuts="64,512,4096", scale=10, hist_instances=2,
+                       hist_blocks=4, hist_block=64, hist_scale=10,
+                       hist_cuts=(64, 512), num_rows=1 << 10),
+    recsys_hier_embeddings=dict(batch=32, steps=4, drain_every=2,
+                                cuts=(64, 128, 256), n_candidates=1000),
+    train_lm=dict(steps=12, batch=2, seq=32, ckpt_every=2, fail_at_step=6,
+                  log_every=0))
+
+
+def test_examples_phase_on_cpu(tmp_path):
+    """Phase 19 rehearsed on the CPU at the examples' test sizes: each
+    example in a fresh process (quickstart also as its plain command),
+    quickstart's values equal to the CPU's, stream_ingest's sort and
+    ``use_kernel`` runs equal (the kernel route's plain version here) and
+    resumed == uninterrupted with no process group left, recsys' serving
+    batch on both routes, train_lm's own checks.  No kernel runs here:
+    the launch gates are the card's."""
+    res = chip_smoke.examples_phase(torch, "cpu", "cpu", str(tmp_path),
+                                    sizes=EXAMPLE_SIZES)
+    assert res["merge_multi"] == res["embedding_bag"] == 0
+    assert "monitor saw 3 records" in res["quickstart_command"]["last_line"]
+    assert res["quickstart"]["monitor_records"] == 3
+    for route in ("sort", "kernel"):
+        run = res["stream_ingest"][route]
+        assert run["counter"] == 2 * 8 * 64
+        assert run["resumed_counter"] == run["uninterrupted_counter"]
+    assert res["recsys_hier_embeddings"]["drains"] == 2
+    assert res["recsys_hier_embeddings"]["use_kernel"] is True
+    assert res["train_lm"]["failures"] == 1

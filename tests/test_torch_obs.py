@@ -13,9 +13,6 @@ import dataclasses
 import json
 import math
 import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +32,6 @@ from repro_torch.obs import slo as tslo
 from repro_torch.obs import trace as ttrace
 
 import torch_parity as tp
-
-ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -203,7 +198,8 @@ def test_trace_schema_and_disabled_noop(tmp_path):
 def test_monitor_aggregates_the_port_query_run(tmp_path):
     """``launch/query.py --obs`` on the CPU writes obs.jsonl; the
     reference's stdlib-only monitor, as its own command, aggregates it:
-    update and query totals, rates, SLO counts and the fleet sample."""
+    update and query totals, rates, SLO counts and the fleet sample; the
+    port's monitor gives the same summary, key for key."""
     d = str(tmp_path / "obs")
     args = tquery.parser().parse_args([
         "--instances", "2", "--blocks", "8", "--block-size", "16",
@@ -214,15 +210,8 @@ def test_monitor_aggregates_the_port_query_run(tmp_path):
         stats, _, states = tquery.run_with_states(args)
     finally:
         ttrace.disable()
-    out = tmp_path / "summary.json"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-m", "repro.launch.monitor",
-                          "--once", "--strict", "--obs-dir", d,
-                          "--summary-out", str(out)],
-                         env=env, cwd=tmp_path, capture_output=True,
-                         text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    summary = json.loads(out.read_text())
+    summary, port_summary = tp.monitor_summaries(d, tmp_path)
+    assert port_summary == summary
     assert summary["sources"] == 1 and summary["malformed_records"] == 0
     assert summary["events"]["service_summary"] == 2
     assert summary["events"]["slo_breach"] == stats["slo_breaches"] == 3

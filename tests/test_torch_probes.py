@@ -13,10 +13,10 @@ the tiny production mesh (the counterpart of
   gradient's collectives do not follow L's parity, and the recorder
   leaves out the ops DTensor's sharding propagation runs on a cache miss,
   which only the first call of each placement makes.  The D4M ingest
-  cell's block probes (1 and 2 updates): no flops and no collective
-  either way; ingest is data-dependent (spills come later in the
-  stream), so the extrapolation from its first two updates counts fewer
-  bytes than the cell.
+  cell's block probes (1 and 2 updates): no collective either way;
+  ingest is data-dependent (spills come later in the stream), so the
+  extrapolation from its first two updates counts fewer flops and bytes
+  than the cell.
 * Under a fake group of 8: mistral-nemo's smoke config at
   ``num_microbatches=2`` on a ``(2, 2, 2)`` ``("pod", "data", "model")``
   mesh through ``cells.lower_cell``: collective bytes > 0, of the kinds
@@ -51,7 +51,7 @@ def test_block_probes_of_ingest(probed):
     got = probed["d4m-stream:ingest_small"]
     raw, corr = got["raw"], got["corrected"]
     assert set(got["probes"]) == {"ingest_T1", "ingest_T2"}
-    assert corr["flops"] == raw["flops"] == 0
+    assert 0 < corr["flops"] < raw["flops"]
     assert corr["coll"] == raw["coll"] == 0
     assert 0 < corr["bytes"] < raw["bytes"]
 

@@ -17,8 +17,10 @@ the recorder's per-device count under DTensor.
   ``meta``; ``signature_of`` takes a ``DeviceMesh`` as the reference takes
   a ``Mesh``; ``replicate_grad`` / ``grad_as_forward`` are identities
   whose backward puts the gradient under the asked placements.
-* An unsharded call is recorded as before: ``FlopCounterMode``'s flops,
-  each op's tensors read and written once.
+* An unsharded call is recorded as before, each op's tensors read and
+  written once; its flops are ``FlopCounterMode``'s for the product and
+  one a element for the ``relu``, as XLA counts the reference's
+  ``jnp.maximum(x @ y, 0)``.
 * Arguments kept for a recording live with the caller's ``Lowered`` /
   ``Compiled``: another lowering of the key leaves them as they were, and
   dropping the caller's objects frees them.
@@ -166,14 +168,14 @@ def test_unsharded_recording_is_flop_counter_and_bytes():
     comp = w.lower(a, b).compile()
     tracekit.record_compiled(comp, (a, b))
     cost = comp.cost_analysis()
-    assert cost["flops"] == 2 * 6 * 4 * 5
+    assert cost["flops"] == 2 * 6 * 4 * 5 + 6 * 5
     assert cost["bytes accessed"] == (24 + 20 + 30) * 4 + (30 + 30) * 4
     mem = comp.memory_analysis()
     assert mem.argument_size_in_bytes == (24 + 20) * 4
     assert mem.output_size_in_bytes == 30 * 4
     meta = tuple(torch.empty(t.shape, device="meta") for t in (a, b))
     tracekit.record_compiled(comp, meta)
-    assert comp.cost_analysis()["flops"] == 2 * 6 * 4 * 5
+    assert comp.cost_analysis()["flops"] == 2 * 6 * 4 * 5 + 6 * 5
     assert comp.memory_analysis().argument_size_in_bytes == (24 + 20) * 4
     assert comp.memory_analysis().temp_size_in_bytes > 0
 

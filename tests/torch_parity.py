@@ -9,6 +9,8 @@ another order.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -445,7 +447,7 @@ def _unsharded_cost(arch: str, variant: str) -> dict:
                     stages.signature_of(extra=(("arch", arch),)))
     comp = w.lower(params, adamw_init(params), dict(tokens=tok, labels=tok),
                    keep_args=True).compile()
-    return comp.cost_analysis()
+    return dict(comp.cost_analysis(), matrix_flops=_matrix_flops(comp))
 
 
 def _expected_arg_bytes(arch: str, variant: str, mesh) -> int:
@@ -473,11 +475,25 @@ def _expected_arg_bytes(arch: str, variant: str, mesh) -> int:
     return total + 2 * math.prod(rows) * 4
 
 
+def _matrix_flops(comp) -> int:
+    """The matrix products' flops of a recorded call (``mm``, ``bmm``,
+    ``addmm``, ``baddbmm``: 2 x the product's multiply-adds), from its
+    ops' shapes: the part of ``flops`` that ``FlopCounterMode``'s table
+    counts."""
+    comp.cost_analysis()                 # records the call if it was not
+    total = 0
+    for op in comp.recorded.ops:
+        if op.name.split(".")[1] in ("mm", "bmm", "addmm", "baddbmm"):
+            a, b = (shape for _, shape in op.ins[-2:])
+            total += 2 * math.prod(a) * b[-1]
+    return total
+
+
 def _cost_row(low) -> dict:
     from repro_torch.roofline.hlo import parse_hlo_collectives
     comp = low.compile()
     mem = comp.memory_analysis()
-    return dict(cost=comp.cost_analysis(),
+    return dict(cost=comp.cost_analysis(), matrix_flops=_matrix_flops(comp),
                 collectives=parse_hlo_collectives(comp.as_text()),
                 arg_bytes=mem.argument_size_in_bytes,
                 peak_bytes=mem.temp_size_in_bytes)
@@ -746,3 +762,40 @@ def run_child(name: str, *args, timeout: int = 600):
         assert res.returncode == 0, res.stderr[-4000:]
         with open(path, "rb") as f:
             return pickle.load(f)
+
+
+# the two packages' monitors: the reference's and the port's copy
+MONITORS = ("repro.launch.monitor", "repro_torch.launch.monitor")
+
+
+def run_monitor(module: str, obs_dir: str, out_dir, *flags: str):
+    """``python -m <module> --once --obs-dir obs_dir --summary-out ...``
+    as its own command; returns the finished process and the path of its
+    summary."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    out = os.path.join(str(out_dir), f"{module}.summary.json")
+    res = subprocess.run(
+        [sys.executable, "-m", module, "--once", *flags, "--obs-dir",
+         obs_dir, "--summary-out", out],
+        env=dict(os.environ, PYTHONPATH=src), cwd=str(out_dir),
+        capture_output=True, text=True, timeout=120)
+    return res, out
+
+
+def monitor_summaries(obs_dir: str, out_dir) -> list:
+    """Both packages' monitors under ``--strict`` on ``obs_dir``, each as
+    its own command: their ``OBS_SUMMARY.json``s, the reference's first.
+    Every field is computed from the records (the monitor reads no clock
+    in ``--once`` mode), so the two are equal key for key."""
+    import json
+    out = []
+    for module in MONITORS:
+        res, path = run_monitor(module, obs_dir, out_dir, "--strict")
+        assert res.returncode == 0, (module, res.stderr)
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
