@@ -1829,10 +1829,10 @@ def dcn_train_phase(torch, device, *, smoke: bool, batch: int, steps: int,
     every step moves the table by minus the direct scatter of the
     embedding gradient (rtol 1e-4, atol 1e-5)."""
     from repro_torch.configs import registry as cfgs
-    from repro_torch.core import vassoc
     from repro_torch.data import synthetic
     from repro_torch.launch import train
     from repro_torch.models import common, dcn
+    from repro_torch.obs import trace as obs_trace
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
     cfg = (cfgs.get_smoke_config if smoke else cfgs.get_config)("dcn-v2")
@@ -1842,9 +1842,9 @@ def dcn_train_phase(torch, device, *, smoke: bool, batch: int, steps: int,
         args = train.make_args(arch="dcn-v2", smoke=smoke, batch=batch,
                                steps=steps, hier_embed=mode == "hier",
                                device=device, log_every=0)
-        syncs = vassoc.HOST_SYNCS["count"]
+        syncs = obs_trace.host_reads().get("vassoc", 0)
         out, state = train.run_with_state(args)
-        syncs = (vassoc.HOST_SYNCS["count"] - syncs) / steps
+        syncs = (obs_trace.host_reads().get("vassoc", 0) - syncs) / steps
         if len(out["losses"]) != steps or not all(
                 math.isfinite(x) for x in out["losses"] + out["gnorms"]):
             raise AssertionError(f"dcn {mode}: losses or gnorms not finite")
@@ -2147,7 +2147,7 @@ def train_phase(torch, device, tmp, *, dcn_smoke=False,
                 flow_cfg=None):
     """Phase 11: training at full width (smaller where the rehearsal on the
     CPU passes its own sizes).  Returns the numbers it printed."""
-    from repro_torch.core import vassoc
+    from repro_torch.obs import trace as obs_trace
     res = dict(dcn=dcn_train_phase(torch, device, smoke=dcn_smoke,
                                    batch=dcn_batch, steps=dcn_steps,
                                    vocab=vocab))
@@ -2191,7 +2191,7 @@ def train_phase(torch, device, tmp, *, dcn_smoke=False,
     if torch.device(device).type == "cuda":
         res["cross_device"] = cross_device_checks(torch)
         print("card == CPU: " + json.dumps(res["cross_device"]), flush=True)
-    res["host_syncs_total"] = vassoc.HOST_SYNCS["count"]
+    res["host_syncs_total"] = obs_trace.host_reads().get("vassoc", 0)
     return res
 
 

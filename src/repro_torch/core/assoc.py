@@ -48,6 +48,12 @@ The invariants every producer and consumer of a segment trades on.
 In this port the counter of contract 5 is held as one int64 per instance;
 ``hier.counter_words`` gives its (hi, lo) view.  Keys stay int32; the one
 int64 key is the transient packed sort key inside ``_canonicalize``.
+
+With tracing on (``obs.trace``), each ``merge_many`` is an ``assoc.merge``
+span: its ``route`` (``"kernel"`` or ``"sort"``), ``width`` (the slots it
+takes in) and ``out_capacity``, and on the sort route ``live`` (the
+non-sentinel slots among them, a device scalar read when the session is
+collected).
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ from repro_torch.analysis import contracts
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import registry
+from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
 
@@ -121,7 +128,8 @@ def _sorted_by_key(hi: Tensor, lo: Tensor, val: Tensor):
 
 
 def _canonicalize(hi: Tensor, lo: Tensor, val: Tensor, out_capacity: int,
-                  sr: Semiring) -> Tuple[AssocSegment, Tensor]:
+                  sr: Semiring, span=obs_trace.NO_SPAN
+                  ) -> Tuple[AssocSegment, Tensor]:
     """Sort by (hi, lo), combine duplicate keys with sr.add, compact, pad.
 
     Inputs may contain SENTINEL entries (ignored).  Returns the canonical
@@ -129,7 +137,8 @@ def _canonicalize(hi: Tensor, lo: Tensor, val: Tensor, out_capacity: int,
     entries dropped because they exceeded out_capacity (largest keys drop
     first, preserving the sorted prefix).  This is the sort route: it runs
     above the merge kernels' capacity ceiling and with the kernels off, and
-    is counted as ``assoc.sort_route`` in the kernel registry.
+    is counted as ``assoc.sort_route`` in the kernel registry.  A kept
+    ``span`` (``merge_many``'s) takes the count of live input slots.
     """
     registry.count("assoc.sort_route")
     n = hi.shape[-1]
@@ -143,6 +152,8 @@ def _canonicalize(hi: Tensor, lo: Tensor, val: Tensor, out_capacity: int,
 
     valid = hi_s != SENTINEL
     n_unique = torch.sum(first & valid).to(torch.int32)
+    if span.on:
+        span.set(live=torch.sum(valid))
 
     # Scatter each run's key to its run slot.  Duplicate writes within a run
     # carry identical key values, so write order is immaterial.
@@ -263,23 +274,30 @@ def merge_many(segments, hi: Tensor, lo: Tensor, val: Tensor, *,
 def _merge_many_impl(segments, hi: Tensor, lo: Tensor, val: Tensor, *,
                      out_capacity: int, sr: Semiring,
                      use_kernel: bool) -> Tuple[AssocSegment, Tensor]:
-    if use_kernel:
-        from repro_torch.kernels.hier_merge import ops as hm_ops
+    with obs_trace.span("assoc.merge", out_capacity=out_capacity) as sp:
+        if use_kernel:
+            from repro_torch.kernels.hier_merge import ops as hm_ops
 
-        run_caps = tuple(s.capacity for s in segments)
-        if hm_ops.multi_padded_capacity(hi.shape[-1], run_caps) \
-                <= hm_ops.MAX_KERNEL_CAPACITY:
-            run_arrays = []
-            for s in segments:
-                run_arrays += [s.hi, s.lo, s.val.to(val.dtype)]
-            o_hi, o_lo, o_val, nnz, ovf = hm_ops.merge_multi(
-                hi, lo, val, *run_arrays,
-                out_capacity=out_capacity, sr_name=sr.name)
-            return AssocSegment(o_hi, o_lo, o_val, nnz), ovf
-    cat_hi = torch.cat([hi] + [s.hi for s in segments])
-    cat_lo = torch.cat([lo] + [s.lo for s in segments])
-    cat_val = torch.cat([val] + [s.val.to(val.dtype) for s in segments])
-    return _canonicalize(cat_hi, cat_lo, cat_val, out_capacity, sr)
+            run_caps = tuple(s.capacity for s in segments)
+            if hm_ops.multi_padded_capacity(hi.shape[-1], run_caps) \
+                    <= hm_ops.MAX_KERNEL_CAPACITY:
+                if sp.on:
+                    sp.set(route="kernel",
+                           width=hi.shape[-1] + sum(run_caps))
+                run_arrays = []
+                for s in segments:
+                    run_arrays += [s.hi, s.lo, s.val.to(val.dtype)]
+                o_hi, o_lo, o_val, nnz, ovf = hm_ops.merge_multi(
+                    hi, lo, val, *run_arrays,
+                    out_capacity=out_capacity, sr_name=sr.name)
+                return AssocSegment(o_hi, o_lo, o_val, nnz), ovf
+        cat_hi = torch.cat([hi] + [s.hi for s in segments])
+        cat_lo = torch.cat([lo] + [s.lo for s in segments])
+        cat_val = torch.cat([val] + [s.val.to(val.dtype) for s in segments])
+        if sp.on:
+            sp.set(route="sort", width=cat_hi.shape[-1])
+        return _canonicalize(cat_hi, cat_lo, cat_val, out_capacity, sr,
+                             span=sp)
 
 
 def gate_segment(seg: AssocSegment, keep,

@@ -20,7 +20,8 @@ scalar nnz arithmetic and executed as ONE canonicalization
 
 The port runs eagerly: a planned spill depth is read to the host (one
 ``int()`` per update here; one ``.tolist()`` per fleet step in
-``core/stream.py``) and the branch for that depth runs directly, so
+``core/stream.py``; each read counted at its site in
+``obs.trace.host_reads``) and the branch for that depth runs directly, so
 ``batch_mode="switch"`` and ``"branchfree"`` differ only in the merge width
 the branch-free form keeps (every layer up to ``up_to``, non-participants
 gated to empty runs) — they give identical states.  A ``HierAssoc`` is
@@ -45,6 +46,7 @@ from repro_torch.core import assoc
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core.assoc import AssocSegment
 from repro_torch.core.semiring import Semiring
+from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
 
@@ -242,13 +244,20 @@ def _pressure(spills: Tensor, last: AssocSegment, cut: int) -> Tensor:
     return spills
 
 
+def _host_int(x: Tensor, site: str) -> int:
+    """``int(x)``: a read to the host, counted at ``site``
+    (``obs.trace.host_reads``)."""
+    obs_trace.host_read(site)
+    return int(x)
+
+
 def _cascade(h: HierAssoc, sr: Semiring, use_kernel: bool = False,
              lazy_l0: bool = False) -> HierAssoc:
     layers = list(h.layers)
     spills = h.spills.clone()
     overflow = h.overflow
     for i in range(len(layers) - 1):
-        if int(layers[i].nnz) > h.cuts[i]:
+        if _host_int(layers[i].nnz, "hier.cascade") > h.cuts[i]:
             layers[i], layers[i + 1], ovf = _spill(
                 layers[i], layers[i + 1], sr, use_kernel,
                 src_canonical=not (lazy_l0 and i == 0))
@@ -361,7 +370,9 @@ def _fused_execute_planned(h: HierAssoc, rows: Tensor, cols: Tensor,
     vdtype = h.layers[0].dtype
 
     if lazy_l0 and B <= h.cuts[0] and depth == 0 and (
-            not may_not_fit or int(h.layers[0].nnz) + B <= caps[0]):
+            not may_not_fit
+            or _host_int(h.layers[0].nnz, "hier.execute_fit") + B
+            <= caps[0]):
         # the LSM fast path: zero sorts
         l0_app, clobbered = _lazy_append(h.layers[0], rows, cols, vals,
                                          n_live=n_live)
@@ -443,7 +454,7 @@ def _update_fused(h: HierAssoc, rows: Tensor, cols: Tensor, vals: Tensor,
     rows, cols, vals, n_live = _prepare_block(h, rows, cols, vals, mask, sr)
     # the depth, read on the host, runs only the layers that take part
     # tracekit: allow(J004) entry=hier.update the reference's lax.switch
-    depth = int(_plan_spill_depth(h, n_live))
+    depth = _host_int(_plan_spill_depth(h, n_live), "hier.plan")
     caps = h.capacities
     L = h.num_layers
 
@@ -463,7 +474,9 @@ def _update_fused(h: HierAssoc, rows: Tensor, cols: Tensor, vals: Tensor,
     # even when the mask-aware plan lands on depth 0 — the branch then runs
     # the canonicalizing merge into layer 0 instead.
     if depth == 0 and lazy_l0 and B <= h.cuts[0] and (
-            append_always_fits or int(h.layers[0].nnz) + B <= caps[0]):
+            append_always_fits
+            or _host_int(h.layers[0].nnz, "hier.update_fit") + B
+            <= caps[0]):
         layer0, ovf = _lazy_append(h.layers[0], rows, cols, vals,
                                    n_live=n_live)
         new_layers = (layer0,) + h.layers[1:]

@@ -30,6 +30,14 @@ Every public entry dispatches through ``stages`` under the reference's
 entry names (``stream.ingest``, ``stream.ingest_jit``,
 ``stream.update_instances``, ``stream.ingest_instances``), all eager: a
 step reads its depth plan on the host, so it cannot be captured.
+
+With tracing on (``obs.trace``), each block-step of ``ingest_instances`` is
+a ``stream.step`` span (``t``, ``cohorts``: the members planned to each
+depth) holding ``stream.plan`` (the plan and its read to the host, which
+the ``stream.plan`` host-read site counts, tracing on or off),
+``stream.append`` (the depth-0 cohort, ``members``) and one
+``stream.member`` span a member run on its own (``instance``, ``depth``,
+``width``: the slots its merge takes in).
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from repro_torch.core import hier
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core.hier import HierAssoc
 from repro_torch.core.semiring import Semiring
+from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
 
@@ -191,10 +200,14 @@ def _put_instance(states: HierAssoc, i: int, one: HierAssoc,
 
 def _run_member(states: HierAssoc, i: int, rows, cols, vals, n_live,
                 depth: int, up_to: int, **kw) -> None:
-    out = hier._fused_execute_planned(
-        instance(states, i), rows[i], cols[i], vals[i], n_live[i], depth,
-        up_to=up_to, **kw)
-    _put_instance(states, i, out, up_to)
+    with obs_trace.span("stream.member", instance=i, depth=depth) as sp:
+        if sp.on:
+            sp.set(width=rows.shape[-1]
+                   + sum(states.capacities[:up_to + 1]))
+        out = hier._fused_execute_planned(
+            instance(states, i), rows[i], cols[i], vals[i], n_live[i],
+            depth, up_to=up_to, **kw)
+        _put_instance(states, i, out, up_to)
 
 
 def _select_depth0_leaves(states: HierAssoc, s0: HierAssoc, take0: Tensor
@@ -233,18 +246,22 @@ def _grouped_execute(states: HierAssoc, rows: Tensor, cols: Tensor,
     kw = dict(sr=sr, use_kernel=use_kernel, lazy_l0=lazy_l0)
     take0 = [i for i, d in enumerate(depths) if d == 0]
     if take0:
-        if lazy_l0 and rows.shape[-1] <= states.cuts[0] and not may_not_fit:
-            s0 = hier._fused_execute_planned(
-                states, rows, cols, vals, n_live, 0, up_to=0, **kw)
-            if len(take0) < len(depths):
-                mask = torch.tensor([d == 0 for d in depths],
-                                    device=states.device)
-                s0 = _select_depth0_leaves(states, s0, mask)
-            states = s0
-        else:
-            for i in take0:
-                _run_member(states, i, rows, cols, vals, n_live, 0, 0,
-                            may_not_fit=may_not_fit, **kw)
+        with obs_trace.span("stream.append") as sp:
+            if sp.on:
+                sp.set(members=len(take0))
+            if lazy_l0 and rows.shape[-1] <= states.cuts[0] \
+                    and not may_not_fit:
+                s0 = hier._fused_execute_planned(
+                    states, rows, cols, vals, n_live, 0, up_to=0, **kw)
+                if len(take0) < len(depths):
+                    mask = torch.tensor([d == 0 for d in depths],
+                                        device=states.device)
+                    s0 = _select_depth0_leaves(states, s0, mask)
+                states = s0
+            else:
+                for i in take0:
+                    _run_member(states, i, rows, cols, vals, n_live, 0, 0,
+                                may_not_fit=may_not_fit, **kw)
     for d in range(1, len(states.cuts)):
         for i, di in enumerate(depths):
             if di == d:
@@ -306,8 +323,10 @@ def _update_instances_impl(sig: stages.Signature):
 
 
 def _update_instances_(states, rows, cols, vals, sr, use_kernel, lazy_l0,
-                       batch_mode, mask) -> HierAssoc:
-    """``update_instances`` on a state this call may update in place."""
+                       batch_mode, mask, step=obs_trace.NO_SPAN
+                       ) -> HierAssoc:
+    """``update_instances`` on a state this call may update in place; a
+    kept ``step`` span takes the cohort sizes."""
     B = rows.shape[-1]
     caps0 = states.layers[0].capacity
     # mirrors hier._update_fused: only a MASKED block wider than the
@@ -316,8 +335,12 @@ def _update_instances_(states, rows, cols, vals, sr, use_kernel, lazy_l0,
     rows, cols, vals, n_live = hier._prepare_block(states, rows, cols, vals,
                                                    mask, sr)
     # the plan, read on the host once a block, picks the layers to merge
-    # tracekit: allow(J004) entry=*ingest* the reference's lax.switch
-    depths = hier._plan_spill_depth(states, n_live).tolist()
+    with obs_trace.span("stream.plan"):
+        obs_trace.host_read("stream.plan")
+        # tracekit: allow(J004) entry=*ingest* the reference's lax.switch
+        depths = hier._plan_spill_depth(states, n_live).tolist()
+    if step.on:
+        step.set(cohorts=[depths.count(d) for d in range(len(states.cuts))])
     if contracts.deep_checks_active():
         # the plan the executor trusts to slice layers, bound-checked
         # against the hierarchy's depth
@@ -429,8 +452,10 @@ def _ingest_instances(states, rows, cols, vals, sr, use_kernel, lazy_l0,
     s = clone_state(states)
     snaps = []
     for t in range(rows.shape[1]):
-        s = _update_instances_(s, rows[:, t], cols[:, t], vals[:, t], sr,
-                               use_kernel, lazy_l0, batch_mode, None)
+        with obs_trace.span("stream.step", t=t) as step:
+            s = _update_instances_(s, rows[:, t], cols[:, t], vals[:, t],
+                                   sr, use_kernel, lazy_l0, batch_mode,
+                                   None, step)
         if with_telemetry:
             snaps.append(_snapshot(s))
     if not with_telemetry:

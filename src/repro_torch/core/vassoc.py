@@ -19,7 +19,8 @@ Sorts are stable, as JAX's ``argsort`` is; ``n_updates`` is int32, as the
 reference holds it (it wraps past 2**31 - 1).  Where the reference takes a
 ``lax.cond`` on a device flag (a spill, a drain), the port reads the flag
 on the host: one synchronisation per layer boundary of ``update`` and one
-per drain decision, counted in ``HOST_SYNCS``.  ``scatter_apply`` and
+per drain decision, counted at the ``vassoc`` site of
+``obs.trace.host_reads``.  ``scatter_apply`` and
 ``drain_to_table`` add into the table IN PLACE and return it (the
 reference returns a new array): a master table of gigabytes is never
 copied.
@@ -32,13 +33,12 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.assoc import SENTINEL
-
-HOST_SYNCS = {"count": 0}     # host reads of a device flag (see above)
+from repro_torch.obs import trace as obs_trace
 
 
 def host_flag(flag: torch.Tensor) -> bool:
-    """``bool(flag)``, counted in ``HOST_SYNCS``."""
-    HOST_SYNCS["count"] += 1
+    """``bool(flag)``, counted at the ``vassoc`` host-read site."""
+    obs_trace.host_read("vassoc")
     return bool(flag)
 
 

@@ -21,6 +21,13 @@ ingest wall (``ingest_round`` events) — the same
 Fleet updates/s is the sum of source rates, which is how the paper
 aggregates share-nothing instances.
 
+Spans (``span`` records, which ``obs.trace.disable()`` writes): count,
+total seconds and self seconds by name, a span's self time being its
+duration less what its child spans cover.  A span's children end before
+it does, so ``disable`` writes them first; the reference's monitor counts
+these records and does not aggregate them, so its summary lacks the
+``spans`` key, which the port's has only when there were spans.
+
 Schema checking: every record must carry ``obs.trace.SCHEMA_FIELDS`` and
 ``seq`` must be monotonic per source; ``--strict`` exits non-zero on any
 malformed or out-of-order record (the CI gate).
@@ -52,6 +59,8 @@ class Aggregator:
     def __init__(self):
         self.sources: dict = {}      # (run, pid) -> per-source state
         self.dispatch: dict = {}     # entry -> count/wall_s/compiles/...
+        self.spans: dict = {}        # name -> count/total_s/self_s
+        self._covered: dict = {}     # (source, span id) -> children's s
         self.events: dict = {}       # ev -> count
         self.records = 0
         self.malformed = 0
@@ -152,6 +161,20 @@ class Aggregator:
         elif prov in ("disk", "memory"):
             d[prov] += 1
 
+    def _ev_span(self, rec, src):
+        key = (rec["run"], rec["pid"])
+        dur = max(rec.get("end_ns", 0) - rec.get("start_ns", 0), 0) / 1e9
+        covered = self._covered.pop((key, rec.get("id")), 0.0)
+        parent = rec.get("parent")
+        if parent is not None:
+            self._covered[(key, parent)] = \
+                self._covered.get((key, parent), 0.0) + dur
+        d = self.spans.setdefault(rec.get("name", "?"),
+                                  dict(count=0, total_s=0.0, self_s=0.0))
+        d["count"] += 1
+        d["total_s"] += dur
+        d["self_s"] += dur - covered
+
     def _ev_slo_breach(self, rec, src):
         pass                        # counted via events; totals ride summary
 
@@ -224,7 +247,7 @@ class Aggregator:
                        attainment=self.slo_ok / self.slo_n,
                        breaches=self.slo_breaches,
                        target_ms=self.slo_target_ms)
-        return dict(
+        out = dict(
             sources=len(self.sources),
             records=self.records,
             malformed_records=self.malformed,
@@ -238,6 +261,9 @@ class Aggregator:
             dispatch={e: dict(d) for e, d in sorted(self.dispatch.items())},
             source_rates=rows,
         )
+        if self.spans:
+            out["spans"] = {n: dict(d) for n, d in sorted(self.spans.items())}
+        return out
 
 
 class Tailer:
@@ -317,6 +343,12 @@ def render(summary: dict) -> str:
         for entry, d in summary["dispatch"].items():
             out.append(f"  {entry:<32} {d['count']:<6} "
                        f"{d['wall_s']:<8.3f}{d['compiles']}")
+    if summary.get("spans"):
+        out.append("span                               n      total_s  "
+                   "self_s")
+        for name, d in summary["spans"].items():
+            out.append(f"  {name:<32} {d['count']:<6} "
+                       f"{d['total_s']:<8.3f} {d['self_s']:.3f}")
     return "\n".join(out)
 
 

@@ -118,21 +118,24 @@ _CACHE_DIR: Optional[str] = None
 _SIDE_STREAMS: dict = {}   # device index -> warm-up / capture stream
 _TYPES: dict = {}          # dataclass name -> type (abstract_args)
 
-# obs.trace installs a per-dispatch hook and an optional annotation class
-# (``torch.profiler.record_function``) here; both are host-side and the
-# off-path cost is one module-global read per dispatch.
+# obs.trace installs a per-dispatch hook and its dispatch span here; both
+# are host-side and the off-path cost is one module-global read each per
+# dispatch.
 _TRACE_HOOK: Optional[Callable] = None
-_TRACE_ANNOTATION = None
+_TRACE_SPAN: Optional[Callable] = None
 
 
-def set_trace_hook(hook: Optional[Callable], annotation=None) -> None:
-    """Install (or clear, with ``None``) the dispatch-span hook.  The hook
-    is called as ``hook(entry=, digest=, wall_s=, compile_s=, provenance=,
-    kind=)`` after every dispatch; ``annotation``, when given, is a
-    context-manager class nested around the call."""
-    global _TRACE_HOOK, _TRACE_ANNOTATION
+def set_trace_hook(hook: Optional[Callable], span=None) -> None:
+    """Install (or clear, with ``None``) the dispatch hook.  The hook is
+    called as ``hook(entry=, digest=, wall_s=, compile_s=, provenance=,
+    kind=)`` after every dispatch; ``span``, when given, is called as
+    ``span(entry)`` for a context manager around the call (the dispatch
+    span, ``obs.trace.dispatch_span``), whose ``set`` takes the
+    dispatch's ``kind``, ``provenance``, ``compile_s`` and
+    ``copied_bytes`` when its ``on`` is true."""
+    global _TRACE_HOOK, _TRACE_SPAN
     _TRACE_HOOK = hook
-    _TRACE_ANNOTATION = annotation if hook is not None else None
+    _TRACE_SPAN = span if hook is not None else None
 
 
 # ------------------------------------------------------------ signatures ----
@@ -820,12 +823,16 @@ class Wrapped:
             comp = self.lower(*args, keep_args=False).compile()
             compile_s = time.perf_counter() - c0
             provenance = "compile"
-        ann = _TRACE_ANNOTATION
-        if ann is not None:
-            with ann(self.entry):
-                out = comp(*args)
-        else:
+        span = _TRACE_SPAN
+        if span is None:
             out = comp(*args)
+        else:
+            with span(self.entry) as sp:
+                out = comp(*args)
+                if sp.on:
+                    sp.set(kind=comp.last_kind, provenance=provenance,
+                           compile_s=compile_s,
+                           copied_bytes=comp.copied_bytes)
         self.last = comp
         wall = time.perf_counter() - t0
         _note_dispatch(self.entry, wall)

@@ -431,8 +431,9 @@ def test_examples_phase_on_cpu(tmp_path):
     res = chip_smoke.examples_phase(torch, "cpu", "cpu", str(tmp_path),
                                     sizes=EXAMPLE_SIZES)
     assert res["merge_multi"] == res["embedding_bag"] == 0
-    assert "monitor saw 3 records" in res["quickstart_command"]["last_line"]
-    assert res["quickstart"]["monitor_records"] == 3
+    # obs_start, the sample's dispatch, the fleet sample and its span
+    assert "monitor saw 4 records" in res["quickstart_command"]["last_line"]
+    assert res["quickstart"]["monitor_records"] == 4
     for route in ("sort", "kernel"):
         run = res["stream_ingest"][route]
         assert run["counter"] == 2 * 8 * 64

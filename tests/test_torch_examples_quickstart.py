@@ -120,7 +120,11 @@ def test_observe_counts_what_it_emitted(streamed, tmp_path):
     assert sample == jsample
     with open(os.path.join(d, "obs.jsonl")) as f:
         evs = [json.loads(line)["ev"] for line in f]
-    assert summary["records"] == len(evs) == jsummary["records"]
+    # the port also writes its span of the sample's one dispatch
+    assert summary["records"] == len(evs)
+    assert len(evs) - evs.count("span") == jsummary["records"]
+    assert evs.count("span") == 1 and summary["spans"][
+        "hier.metrics_snapshot"]["count"] == 1
     assert evs.count("fleet") == 1 and summary["sources"] == 1
     assert summary["per_layer"] == jsummary["per_layer"]
 

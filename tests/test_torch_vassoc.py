@@ -13,6 +13,7 @@ import torch
 from repro.core import vassoc as jv
 from repro_torch.core import vassoc as tv
 from repro_torch.core.assoc import SENTINEL
+from repro_torch.obs import trace as ttrace
 
 RTOL = 1e-4
 
@@ -83,7 +84,7 @@ def test_update_cascade_drain_and_query_all(integer_vals):
     jh = jv.create(cuts, block, dim)
     th = tv.create(cuts, block, dim, device="cpu")
     _hier_equal(th, jh)
-    syncs = tv.HOST_SYNCS["count"]
+    syncs = ttrace.host_reads().get("vassoc", 0)
     jupdate = jax.jit(jv.update)
     for i in range(12):
         k, v = _rows(rng, block, 90, dim, integer_vals)
@@ -94,7 +95,7 @@ def test_update_cascade_drain_and_query_all(integer_vals):
                        None if m is None else torch.from_numpy(m))
         _hier_equal(th, jh, integer_vals)
     # one host read per layer boundary per update
-    assert tv.HOST_SYNCS["count"] - syncs == 12 * (len(cuts) - 1)
+    assert ttrace.host_reads()["vassoc"] - syncs == 12 * (len(cuts) - 1)
     assert int(th.spills[-2]) > 0
     _seg_equal(tv.query_all(th), jv.query_all(jh), integer_vals)
     table = rng.normal(size=(90, dim)).astype(np.float32)
