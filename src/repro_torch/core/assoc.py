@@ -147,10 +147,14 @@ def _canonicalize(hi: Tensor, lo: Tensor, val: Tensor, out_capacity: int,
 
     first = torch.ones((n,), dtype=torch.bool, device=dev)
     first[1:] = (hi_s[1:] != hi_s[:-1]) | (lo_s[1:] != lo_s[:-1])
-    seg_id = torch.cumsum(first, 0) - 1                  # run index per slot
-    combined = sr.segment_add(val_s, seg_id, n)          # [n]
-
     valid = hi_s != SENTINEL
+    # Run index per slot, each sentinel slot a run of its own.  Sentinels
+    # sort last, so live runs keep their ids and every sentinel slot gets an
+    # id >= n_unique that no other slot has: the sentinel run's adds and key
+    # writes go to distinct addresses (``live`` masks those slots).
+    ids = torch.cumsum(first | ~valid, 0) - 1
+    combined = sr.segment_add(val_s, ids, n)             # [n]
+
     n_unique = torch.sum(first & valid).to(torch.int32)
     if span.on:
         span.set(live=torch.sum(valid))
@@ -158,9 +162,9 @@ def _canonicalize(hi: Tensor, lo: Tensor, val: Tensor, out_capacity: int,
     # Scatter each run's key to its run slot.  Duplicate writes within a run
     # carry identical key values, so write order is immaterial.
     out_hi = torch.full((n,), SENTINEL, dtype=torch.int32,
-                        device=dev).scatter(0, seg_id, hi_s)
+                        device=dev).scatter(0, ids, hi_s)
     out_lo = torch.full((n,), SENTINEL, dtype=torch.int32,
-                        device=dev).scatter(0, seg_id, lo_s)
+                        device=dev).scatter(0, ids, lo_s)
 
     zero = sr_mod.integer_zero(sr, val.dtype)
     live = torch.arange(n, device=dev) < n_unique

@@ -238,3 +238,128 @@ def test_reductions_match(name, dtype):
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(tlo.numpy()[tm.numpy()],
                                   np.asarray(jlo)[np.asarray(jm)])
+
+
+def _sentinel_block(seed, n, share, np_dtype):
+    """Raw COO of ``n`` slots, ``share`` of them masked to the SENTINEL key
+    and the semiring zero; whole-number values in [-8, 8] and few keys, so
+    every run's sum stays exact in bfloat16."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-3, 6, n).astype(np.int32)
+    cols = rng.integers(-4, 4, n).astype(np.int32)
+    cols[::7] = rng.integers(-2**31, 2**31 - 1, len(cols[::7]))
+    vals = rng.integers(-8, 9, n).astype(np_dtype)
+    dead = rng.permutation(n)[:round(share * n)]
+    mask = np.ones(n, bool)
+    mask[dead] = False
+    return rows, cols, vals, mask
+
+
+_VAL_DTYPES = {"float32": (np.float32, torch.float32, jnp.float32),
+               "bfloat16": (np.float32, torch.bfloat16, jnp.bfloat16),
+               "int32": (np.int32, torch.int32, jnp.int32)}
+
+
+def _assert_sort_route_equal(tseg, tovf, jseg, jovf, what):
+    for f in ("hi", "lo", "nnz"):
+        np.testing.assert_array_equal(getattr(tseg, f).numpy(),
+                                      np.asarray(getattr(jseg, f)),
+                                      err_msg=f"{what} {f}")
+    if tseg.val.dtype == torch.bfloat16:
+        assert jseg.val.dtype == jnp.bfloat16, what
+        got = tseg.val.float().numpy()
+        want = np.asarray(jseg.val.astype(jnp.float32))
+    else:
+        got, want = tseg.val.numpy(), np.asarray(jseg.val)
+    tp.assert_vals(got, want, exact=True, what=f"{what} val")
+    assert int(tovf) == int(jovf), what
+
+
+@pytest.mark.parametrize("case", ["share0", "share60", "share100", "n1"])
+@pytest.mark.parametrize("dtype", sorted(_VAL_DTYPES))
+@pytest.mark.parametrize("name", SRS)
+def test_sort_route_matches_at_sentinel_shares(name, dtype, case):
+    """``from_coo`` and ``merge_many``'s sort route (``_canonicalize``,
+    each sentinel slot on its own segment id) against the reference: keys,
+    values, nnz and overflow exact, with no, ~60 % and only sentinel
+    slots, and a single slot; ``out_capacity`` below, at and above the
+    width (the overflow and pad paths)."""
+    t, j = tsr.get(name), jsr.get(name)
+    np_dtype, t_dtype, j_dtype = _VAL_DTYPES[dtype]
+    n, share = (1, 0.0) if case == "n1" else (120, int(case[5:]) / 100)
+
+    def both_masked(seed, width):
+        rows, cols, vals, mask = _sentinel_block(seed, width, share, np_dtype)
+        jr, jc, jv = jassoc.mask_coo(
+            jnp.asarray(rows), jnp.asarray(cols),
+            jnp.asarray(vals).astype(j_dtype), jnp.asarray(mask), j)
+        tr, tc, tv = tassoc.mask_coo(
+            torch.from_numpy(rows), torch.from_numpy(cols),
+            torch.from_numpy(vals).to(t_dtype), torch.from_numpy(mask), t)
+        return (jr, jc, jv), (tr, tc, tv)
+
+    (jr, jc, jv), (tr, tc, tv) = both_masked(11, n)
+    for cap in (n // 2, n, n + 16):
+        tseg, tovf = tassoc.from_coo(tr, tc, tv, cap, t)
+        jseg, jovf = jassoc.from_coo(jr, jc, jv, cap, j)
+        _assert_sort_route_equal(tseg, tovf, jseg, jovf, f"from_coo {cap}")
+    if share == 0.0 and n > 1:
+        assert int(tseg.nnz) > 0
+    segs_t, segs_j = [], []
+    for seed, cap in ((12, n), (13, 2 * n)):
+        (sjr, sjc, sjv), (str_, stc, stv) = both_masked(seed, cap)
+        segs_j.append(jassoc.from_coo(sjr, sjc, sjv, cap, j)[0])
+        segs_t.append(tassoc.from_coo(str_, stc, stv, cap, t)[0])
+    width = 4 * n
+    for cap in (width // 2, width, width + 16):
+        tseg, tovf = tassoc.merge_many(segs_t, tr, tc, tv, out_capacity=cap,
+                                       sr=t, use_kernel=False)
+        jseg, jovf = jassoc.merge_many(segs_j, jr, jc, jv, out_capacity=cap,
+                                       sr=j)
+        _assert_sort_route_equal(tseg, tovf, jseg, jovf, f"merge_many {cap}")
+
+
+def test_sort_route_sentinel_slots_take_their_own_ids():
+    """On a sorted input with a sentinel tail, the ids ``_canonicalize``
+    hands the segment sum keep each live run's index, and give every
+    sentinel slot an id in [live runs, n) that no other slot has."""
+    seen = []
+
+    class Recording(tsr.Semiring):
+        def segment_add(self, vals, segment_ids, num_segments):
+            seen.append(segment_ids.clone())
+            return super().segment_add(vals, segment_ids, num_segments)
+
+    t = tsr.PLUS_TIMES
+    sr = Recording(*(getattr(t, f.name) for f in dataclasses.fields(t)))
+    rows, cols, vals, _ = _block(9, 64, 4, np.float32)
+    seg, _ = tassoc.from_coo(torch.from_numpy(rows), torch.from_numpy(cols),
+                             torch.from_numpy(vals), 100, t)
+    live = int(seg.nnz)
+    assert 0 < live < 64 and int(seg.hi[live]) == tassoc.SENTINEL
+    dup = torch.arange(100) % 3 == 0             # repeat a third of the slots
+    hi = torch.cat([seg.hi[:live], seg.hi[:live][dup[:live]], seg.hi[live:]])
+    lo = torch.cat([seg.lo[:live], seg.lo[:live][dup[:live]], seg.lo[live:]])
+    val = torch.cat([seg.val[:live], seg.val[:live][dup[:live]],
+                     seg.val[live:]])
+    order = torch.sort(tassoc.pack_key(hi, lo), stable=True).indices
+    hi, lo, val = hi[order], lo[order], val[order]
+    out, _ = tassoc._canonicalize(hi, lo, val, hi.shape[0], sr)
+    (ids,) = seen
+    n = hi.shape[0]
+    valid = hi != tassoc.SENTINEL
+    n_live = int(valid.sum())
+    assert n_live > live and n - n_live == 100 - live
+    run = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool),
+                                  (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])]),
+                       0) - 1
+    assert torch.equal(ids[valid], run[valid])
+    assert int(ids[valid].max()) == live - 1
+    sent = ids[~valid]
+    assert len(set(sent.tolist())) == len(sent)
+    assert not set(sent.tolist()) & set(ids[valid].tolist())
+    assert int(sent.min()) >= live and int(sent.max()) < n
+    tp.assert_vals(out.val.numpy()[:live], seg.val.numpy()[:live]
+                   + np.where(dup[:live].numpy(), seg.val.numpy()[:live], 0),
+                   exact=True)
+    assert int(out.nnz) == live
